@@ -1,0 +1,59 @@
+"""Linear-interpolation resampling (np.interp parity), in torch.
+
+Counterpart of ``emg_tpu/dsp/resample.py``. The reference subsamples
+filtered EMG from 1000 Hz to 689.06 Hz (raw path) and 516.79 Hz (feature
+path) with np.interp over a uniform grid (reference read_emg.py:45-49).
+Here it is a gather + lerp over a grid computed in float64 on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def subsample_length(n: int, new_freq: float, old_freq: float) -> int:
+    """Output length of the reference's np.arange(0, (n-1)/old, 1/new) grid."""
+    times_end = np.float64(n - 1) / np.float64(old_freq)
+    return int(np.arange(0, times_end, 1.0 / np.float64(new_freq)).shape[0])
+
+
+def subsample_masked(x: torch.Tensor, n: int, new_freq: float, old_freq: float):
+    """Resample axis 0 of a fixed (T_max, ...) buffer as if the signal were
+    x[:n]. Returns (out, out_len); rows of ``out`` at or beyond ``out_len``
+    are unspecified."""
+    T = x.shape[0]
+    M = subsample_length(T, new_freq, old_freq)  # max possible output length
+    sample_times = np.arange(M, dtype=np.float64) / np.float64(new_freq)
+    pos = sample_times * np.float64(old_freq)
+    i0_static = np.floor(pos).astype(np.int64)
+    frac = torch.as_tensor((pos - i0_static).astype(np.float32), device=x.device)
+    # where i0 is clipped to n-1 the true position lies past the end; with
+    # i0 == i1 == n-1 the lerp degenerates to x[n-1] regardless of frac
+    i0 = torch.as_tensor(i0_static, device=x.device).clamp(0, n - 1)
+    i1 = (i0 + 1).clamp(0, n - 1)
+    x0 = x.index_select(0, i0)
+    x1 = x.index_select(0, i1)
+    frac = frac.reshape((-1,) + (1,) * (x.dim() - 1))
+    out = x0 + (x1 - x0) * frac
+    return out, masked_output_length(n, new_freq, old_freq)
+
+
+def masked_output_length(n: int, new_freq: float, old_freq: float) -> int:
+    """len(np.arange(0, (n-1)/old_freq, 1/new_freq)), in the JAX package's
+    exact-rational form ceil((n-1) * new/old) for centihertz rates."""
+    num = round(float(new_freq) * 100)
+    den = round(float(old_freq) * 100)
+    if (abs(num - float(new_freq) * 100) > 1e-9
+            or abs(den - float(old_freq) * 100) > 1e-9
+            or den % 1000 != 0):
+        return int(np.ceil(np.float32(n - 1) / np.float32(old_freq) * np.float32(new_freq)))
+    a = n - 1
+    a_hi, a_lo = a // 1000, a % 1000
+    X = a_hi * num
+    Y = a_lo * num
+    scale = den // 1000
+    W = X + Y // 1000
+    s = Y % 1000
+    q, r = W // scale, W % scale
+    return q + int((r > 0) or (s > 0))
