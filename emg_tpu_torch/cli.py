@@ -1,17 +1,21 @@
-"""CLI entry point of the port: saved-model greedy evaluation (PER).
+"""CLI entry point of the port: training and saved-model greedy evaluation.
 
-Counterpart of ``emg_tpu/cli.py``'s ``--evaluate_saved_greedy_search``
-(reference recognition_model.py:385-420): batch-1 greedy decoding of the
-test split, PER + token accuracy, logged to
-<output_directory>/log_greedy_search.txt in the reference's format.
+Counterpart of ``emg_tpu/cli.py`` (reference recognition_model.py:385-420):
 
-  python -m emg_tpu_torch.cli --evaluate_saved_greedy_search CKPT.pt \\
+  python -m emg_tpu_torch.cli --output_directory OUT [--resume] \\
+      [--start_training_from MODEL.pt] [--device cuda|cpu] [--section.key value ...]
+  python -m emg_tpu_torch.cli --evaluate_saved_greedy_search MODEL.pt \\
       [--device cuda|cpu] [--section.key value ...]
 
-The checkpoint is a ``torch.save``d state dict in the reference's key names
-(a reference ``.pt`` file, or ``utils/convert.py::state_dict_from_flax`` of
-the JAX package's variables). Training and beam search are not ported yet
-and stop with an error.
+With no evaluate flag it trains (``train.trainer.Trainer``), logging to
+<output_directory>/log.txt and writing ``latest`` (the full train state,
+which ``--resume`` continues from) and ``model.pt`` (the best weights).
+``--evaluate_saved_greedy_search`` decodes the test split greedily at batch
+1 and reports PER + token accuracy in <output_directory>/log_greedy_search.txt,
+in the reference's format. A checkpoint is a ``torch.save``d state dict in
+the reference's key names: the port's model.pt, a reference ``.pt`` file,
+or ``utils/convert.py::state_dict_from_flax`` of the JAX package's
+variables. Beam search is not ported yet and stops with an error.
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from emg_tpu_torch.config import Config
 
@@ -61,6 +64,7 @@ def load_model_for_eval(cfg: Config, ckpt_path: str, device="cuda"):
     """The serving model at ``decode.compute_dtype`` (bfloat16 by default;
     parameters stay float32) with the checkpoint's weights, in eval mode."""
     from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.train.checkpoint import load_weights
 
     if cfg.decode.quantize_int8:
         raise NotImplementedError("--decode.quantize_int8 is not yet ported")
@@ -68,9 +72,7 @@ def load_model_for_eval(cfg: Config, ckpt_path: str, device="cuda"):
         dataclasses.replace(cfg.model, compute_dtype=cfg.decode.compute_dtype),
         device=device,
     )
-    state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(load_weights(ckpt_path), strict=True)
     return model.eval()
 
 
@@ -107,6 +109,28 @@ def evaluate_saved_greedy_search(cfg: Config, device="cuda"):
     return per, acc
 
 
+def train(cfg: Config, device="cuda"):
+    """Train on the split the config names; ``--resume`` continues from
+    <output_directory>/latest where it exists. Returns the Trainer."""
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.train.metrics_writer import MetricsWriter, default_log_dir
+    from emg_tpu_torch.train.trainer import Trainer
+
+    trainset = EMGDataset(cfg, dev=False, test=False, device=device)
+    devset = EMGDataset(cfg, dev=True, device=device)
+    log.info("train / dev split: %d %d", len(trainset), len(devset))
+    writer = MetricsWriter(default_log_dir(os.path.join(cfg.paths.output_directory, "logs", "run")))
+    trainer = Trainer(cfg, trainset, devset, writer, device=device)
+    try:
+        if cfg.paths.resume and trainer.ckpt.exists("latest"):
+            trainer.resume()
+        else:
+            trainer.train()
+    finally:
+        writer.close()
+    return trainer
+
+
 def _pop_flag(argv, name: str, default=None):
     """Remove ``--name value`` / ``--name=value`` from argv; return value."""
     for i, a in enumerate(argv):
@@ -121,6 +145,7 @@ def _pop_flag(argv, name: str, default=None):
 
 
 def main(argv=None):
+    """Dispatch on the evaluate flags: greedy evaluation, or training."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--help" in argv or "-h" in argv:
         print(__doc__)
@@ -131,12 +156,11 @@ def main(argv=None):
     cfg = Config.from_args(argv)
     if cfg.paths.evaluate_saved_beam_search:
         raise NotImplementedError("--evaluate_saved_beam_search is not yet ported")
-    if not cfg.paths.evaluate_saved_greedy_search:
-        raise NotImplementedError(
-            "training is not yet ported; the port serves --evaluate_saved_greedy_search"
-        )
-    _setup_logging(cfg.paths.output_directory, "log_greedy_search.txt")
-    return evaluate_saved_greedy_search(cfg, device=device)
+    if cfg.paths.evaluate_saved_greedy_search:
+        _setup_logging(cfg.paths.output_directory, "log_greedy_search.txt")
+        return evaluate_saved_greedy_search(cfg, device=device)
+    _setup_logging(cfg.paths.output_directory, "log.txt")
+    return train(cfg, device=device)
 
 
 if __name__ == "__main__":

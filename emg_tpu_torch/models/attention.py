@@ -7,9 +7,16 @@ reference's MultiHeadAttention + LearnedRelativePositionalEmbedding
 per-head table of 2*maxpos-1 learned relative-position embeddings. All
 shapes are batch-first (B, T, D).
 
-Encoder self-attention always goes through ``ops.flash_attention_relpos``:
-the CUDA kernel on the card, its plain version on the CPU. The decoder's
-causal self-attention and cross-attention are plain tensor code.
+Encoder self-attention goes through the fused kernels: in eval mode
+``ops.flash_attention_relpos`` (serving), in train mode
+``ops.flash_attention_relpos_train`` (forward and backward kernels, with
+the attention dropout inside them); on the CPU both are their plain
+versions. The decoder's causal self-attention and cross-attention are plain
+tensor code.
+
+Train mode (``module.train()``) applies the reference's dropouts. Every
+random draw comes from the ``torch.Generator`` the caller passes down (on
+the activations' device), so a run is a function of its generator's seed.
 """
 
 from __future__ import annotations
@@ -19,11 +26,33 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
+from emg_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_train
 
 NEG_FILL = -1e8  # reference masked_fill value
 STRUCT_MASK = float("-inf")  # structural (not-yet-generated) positions
 ATTN_TILE = 128  # encoder self-attention pads T up to a multiple of this
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout`` semantics: keep with
+    probability 1 - rate, scale kept values by 1 / (1 - rate)), its mask
+    drawn from ``generator``. The identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """A one-element int32 tensor of 32 random bits: the attention
+    dropout's hash seed, drawn on the device with no host sync."""
+    if generator is None:
+        raise ValueError("train-mode attention dropout needs a torch.Generator")
+    return torch.randint(-2 ** 31, 2 ** 31, (1,), generator=generator, device=device,
+                         dtype=torch.int64).to(torch.int32)
 
 
 class LearnedRelativePositionalBias(nn.Module):
@@ -57,8 +86,9 @@ class LearnedRelativePositionalBias(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, relative_positional: bool = False,
-                 relative_positional_distance: int = 100):
+                 relative_positional_distance: int = 100, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         H = num_heads
         Dh = d_model // H
         if Dh * H != d_model:
@@ -101,6 +131,7 @@ class MultiHeadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # (B, Tk) True=pad
         query_padding_mask: Optional[torch.Tensor] = None,  # (B, Tq) True=pad
         causal: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         if key is query:  # self-attention: one fused projection matmul
             q, k, v = self.project_qkv(query)
@@ -109,7 +140,13 @@ class MultiHeadAttention(nn.Module):
             k, v = self.project_kv(key)
 
         if self.relative_positional is not None and not causal:
-            o = relpos_self_attention(q, k, v, self.relative_positional, key_padding_mask)
+            seed = None
+            if self.training:
+                # at rate 0 no seed is drawn, as the JAX package draws none
+                seed = (draw_seed(generator, q.device) if self.dropout > 0.0
+                        else torch.zeros(1, dtype=torch.int32, device=q.device))
+            o = relpos_self_attention(q, k, v, self.relative_positional, key_padding_mask,
+                                      self.dropout, seed)
             return self.output(o.to(query.dtype))
 
         logits = torch.einsum("bhqa,bhka->bhqk", q, k) / (self.head_dim ** 0.5)
@@ -122,6 +159,7 @@ class MultiHeadAttention(nn.Module):
         if query_padding_mask is not None:
             logits = torch.where(query_padding_mask[:, None, :, None], NEG_FILL, logits)
         probs = torch.softmax(logits, dim=-1)
+        probs = dropout(probs, self.dropout, generator, self.training)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
         return self.output(o)
 
@@ -153,14 +191,20 @@ class MultiHeadAttention(nn.Module):
 
 
 def relpos_self_attention(q, k, v, relpos: LearnedRelativePositionalBias,
-                          key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Encoder self-attention through the fused kernel. q, k, v:
-    (B, H, T, Dh). Returns (B, H, T, Dh) float32.
+                          key_padding_mask: Optional[torch.Tensor],
+                          dropout_rate: float = 0.0,
+                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encoder self-attention through the fused kernels. q, k, v:
+    (B, H, T, Dh). Returns (B, H, T, Dh) float32. With ``seed`` (a
+    one-element int32 tensor) it is the differentiable training attention
+    with ``dropout_rate`` on the probabilities; without, the serving one.
 
     T is padded up to a multiple of ATTN_TILE (192 -> 256): pad keys are
     masked, pad query rows sliced off, and the relative window is taken at
     the padded length, so valid rows are exact. Only key pads enter the
     kernel; query-pad rows come out unmasked (see ops/flash_attention.py).
+    Gradients reach the relative-position table through the window's pad
+    and slice.
     """
     B, H, T, Dh = q.shape
     Tp = -(-T // ATTN_TILE) * ATTN_TILE
@@ -171,5 +215,8 @@ def relpos_self_attention(q, k, v, relpos: LearnedRelativePositionalBias,
         q, k, v = (nn.functional.pad(t, pad) for t in (q, k, v))
         kp = nn.functional.pad(kp, (0, Tp - T), value=True)
     used, oob = relpos.window(Tp)
-    o = flash_attention_relpos(q, k, v, used.to(q.dtype), oob, kp)
+    if seed is None:
+        o = flash_attention_relpos(q, k, v, used.to(q.dtype), oob, kp)
+    else:
+        o = flash_attention_relpos_train(q, k, v, used.to(q.dtype), oob, kp, dropout_rate, seed)
     return o[:, :, :T]

@@ -8,6 +8,12 @@ decollate_tensor + pad_sequence) -> relative-positional transformer
 encoder -> CTC head; target embedding (+1/d-scaled sinusoidal PE) ->
 causal transformer decoder with cross-attention -> CE head.
 
+Train mode (``model.train()``): BatchNorm takes batch statistics over the
+valid packed rows, the dropouts of ``dropout_model`` / ``dropout_pos_emb``
+apply, and the packed rows are shifted left by a random r in [0, 8)
+samples (reference architecture.py:104-107). Every draw comes from the
+``torch.Generator`` passed to ``forward`` (on the model's device).
+
 Parameters are float32 and carry the reference's state-dict names, so a
 reference ``.pt`` file (or ``utils/convert.py::state_dict_from_flax`` of the
 JAX package's variables) loads with ``load_state_dict``. With
@@ -33,6 +39,21 @@ from emg_tpu_torch.text.phonemes import N_PHONES, PAD_ID
 
 NUM_OUTS_DEC = N_PHONES  # 43
 NUM_OUTS_ENC = N_PHONES + 1  # 44, extra class is the CTC blank
+
+
+def shift_rows(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Shift each packed row (N, L, C) left by r samples, zero-filling the
+    tail. ``r`` is a one-element integer tensor on x's device, so the shift
+    needs no host sync; r = 0 is the identity."""
+    L = x.shape[1]
+    idx = torch.arange(L, device=x.device) + r
+    shifted = x[:, idx.clamp(max=L - 1)]
+    return torch.where((idx < L)[None, :, None], shifted, 0.0)
+
+
+def draw_shift(generator: torch.Generator, device) -> torch.Tensor:
+    """The train-time shift r in [0, 8), a one-element tensor on ``device``."""
+    return torch.randint(0, 8, (1,), generator=generator, device=device)
 
 
 def gather_utterances(flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor, T: int):
@@ -74,13 +95,15 @@ class EMGModel(nn.Module):
         self.embedding_tgt = nn.Embedding(NUM_OUTS_DEC, D)
         self.pos_decoder = PositionalEncoding(
             D, index_axis="batch" if cfg.decoder_pe == "reference_batch" else "position",
+            dropout=cfg.dropout_pos_emb,
         )
         self.transformerEncoder = TransformerEncoder(
             cfg.num_layers_encoder, D, cfg.n_heads_encoder, cfg.feed_forward_layer_size,
-            cfg.relative_distance,
+            cfg.relative_distance, cfg.dropout_model,
         )
         self.transformerDecoder = TransformerDecoder(
             cfg.num_layers_decoder, D, cfg.n_heads_decoder, cfg.feed_forward_layer_size,
+            cfg.dropout_model,
         )
         self.w_aux = nn.Linear(D, NUM_OUTS_ENC)
         self.w_out = nn.Linear(D, NUM_OUTS_DEC)
@@ -123,13 +146,21 @@ class EMGModel(nn.Module):
         offsets: torch.Tensor,  # (B,)
         lengths: torch.Tensor,  # (B,)
         max_frames: int,  # T of the re-batched encoder input
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns (memory (B,T,D) float32, enc_logits (B,T,44), src_pad_mask (B,T))."""
-        x = self.conv_blocks(packed_raw, n_rows, self.dtype)
+        """Returns (memory (B,T,D) float32, enc_logits (B,T,44), src_pad_mask (B,T)).
+        In train mode the rows shift by an r in [0, 8) drawn from
+        ``generator``."""
+        x = packed_raw
+        if self.training:
+            if generator is None:
+                raise ValueError("train mode needs a torch.Generator for the time shift")
+            x = shift_rows(x, draw_shift(generator, x.device))
+        x = self.conv_blocks(x, n_rows, self.dtype)
         x = linear(self.w_raw_in, x)  # (N, chunk/8, D)
         flat = x.reshape(-1, x.shape[-1])
         src, src_pad_mask = gather_utterances(flat, offsets, lengths, max_frames)
-        memory = self.transformerEncoder(src.to(self.dtype), src_pad_mask).float()
+        memory = self.transformerEncoder(src.to(self.dtype), src_pad_mask, generator).float()
         return memory, self.w_aux(memory), src_pad_mask
 
     # -- decoder path ------------------------------------------------------
@@ -140,13 +171,22 @@ class EMGModel(nn.Module):
         return F.embedding(y, table)
 
     def decode(self, y: torch.Tensor, memory: torch.Tensor,
-               memory_pad_mask: torch.Tensor) -> torch.Tensor:
+               memory_pad_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced decoder: y (B, S) ids -> dec_logits (B, S, 43)."""
-        tgt = self.pos_decoder(self._embed_targets(y))
+        tgt = self.pos_decoder(self._embed_targets(y), generator)
         out = self.transformerDecoder(
-            tgt.to(self.dtype), memory.to(self.dtype), y == PAD_ID, memory_pad_mask,
+            tgt.to(self.dtype), memory.to(self.dtype), y == PAD_ID, memory_pad_mask, generator,
         )
         return self.w_out(out.float())
+
+    def forward(self, packed_raw, n_rows: int, offsets, lengths, y, max_frames: int,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training/eval forward: returns (enc_logits, dec_logits)."""
+        memory, enc_logits, src_pad_mask = self.encode(
+            packed_raw, n_rows, offsets, lengths, max_frames, generator,
+        )
+        return enc_logits, self.decode(y, memory, src_pad_mask, generator)
 
     def project_cross_kvs(self, memory: torch.Tensor):
         """Per-decoder-layer memory K/V at the compute dtype, computed once

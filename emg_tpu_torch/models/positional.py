@@ -2,8 +2,7 @@
 
 Counterpart of ``emg_tpu/models/positional.py``, matching the reference
 PositionalEncoding (transformer.py:406-435): standard interleaved sin/cos,
-added to the input scaled by 1/d_model. (Its dropout is a training-time
-step; the port serves only, so far.)
+added to the input scaled by 1/d_model, followed by dropout in train mode.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+
+from emg_tpu_torch.models.attention import dropout
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,8 +38,10 @@ class PositionalEncoding(nn.Module):
     constant ``pe[b]``. Converted reference checkpoints need this mode.
     """
 
-    def __init__(self, d_model: int, max_len: int = 5000, index_axis: str = "position"):
+    def __init__(self, d_model: int, max_len: int = 5000, index_axis: str = "position",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         if index_axis not in ("position", "batch"):
             raise ValueError(f"index_axis must be 'position' or 'batch', got {index_axis!r}")
         self.d_model = d_model
@@ -48,7 +51,7 @@ class PositionalEncoding(nn.Module):
         self.register_buffer("table", torch.as_tensor(sinusoid_table(max_len, d_model)),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         # x: (B, T, D)
         B, T = x.shape[0], x.shape[1]
         table = self.table
@@ -60,4 +63,5 @@ class PositionalEncoding(nn.Module):
             if T >= self.max_len:
                 raise ValueError("sequence too long for the positional encoding")
             pe = table[None, :T, :]
-        return x + (1.0 / self.d_model) * pe.to(x.dtype)
+        x = x + (1.0 / self.d_model) * pe.to(x.dtype)
+        return dropout(x, self.dropout, generator, self.training)

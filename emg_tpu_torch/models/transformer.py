@@ -4,8 +4,10 @@ Counterpart of ``emg_tpu/models/transformer.py``. Layer topology matches the
 reference TransformerEncoderLayer / TransformerDecoderLayer
 (transformer.py:11-134): residual -> LayerNorm after each sublayer,
 relative-positional self-attention in the encoder only, causal + padding
-masks in the decoder. The training-time dropouts come with the training
-slice. Parameter names follow the reference
+masks in the decoder. In train mode (``module.train()``) every residual
+branch, the feed-forward hidden layer and the attention probabilities take
+dropout at ``dropout``, each mask drawn from the ``generator`` passed to
+``forward``. Parameter names follow the reference
 (``layers.{i}.self_attn``, ``linear1``, ``norm1``, ...).
 
 LayerNorm arithmetic stays float32 (float32 parameters; a bfloat16
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from emg_tpu_torch.models.attention import NEG_FILL, MultiHeadAttention
+from emg_tpu_torch.models.attention import NEG_FILL, MultiHeadAttention, dropout
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -39,54 +41,64 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch
 
 
 class _FeedForwardMixin:
-    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(self.linear2, F.relu(linear(self.linear1, x)))
+    def feed_forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        h = F.relu(linear(self.linear1, x))
+        return linear(self.linear2, self.drop(h, generator))
+
+    def drop(self, x: torch.Tensor, generator) -> torch.Tensor:
+        return dropout(x, self.dropout, generator, self.training)
 
 
 class TransformerEncoderLayer(nn.Module, _FeedForwardMixin):
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 relative_positional_distance: int):
+                 relative_positional_distance: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiHeadAttention(
             d_model, num_heads, relative_positional=True,
-            relative_positional_distance=relative_positional_distance,
+            relative_positional_distance=relative_positional_distance, dropout=dropout,
         )
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, src: torch.Tensor, src_padding_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, src: torch.Tensor, src_padding_mask: torch.Tensor,
+                generator=None) -> torch.Tensor:
         cdt = src.dtype
         attn = self.self_attn(
             src, src, key_padding_mask=src_padding_mask,
-            query_padding_mask=src_padding_mask,
+            query_padding_mask=src_padding_mask, generator=generator,
         )
-        src = layer_norm(self.norm1, src + attn, cdt)
-        return layer_norm(self.norm2, src + self.feed_forward(src), cdt)
+        src = layer_norm(self.norm1, src + self.drop(attn, generator), cdt)
+        ff = self.feed_forward(src, generator)
+        return layer_norm(self.norm2, src + self.drop(ff, generator), cdt)
 
 
 class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
-    def __init__(self, d_model: int, num_heads: int, d_ff: int):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.multihead_attn = MultiHeadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout=dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout=dropout)
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask):
+    def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask, generator=None):
         cdt = tgt.dtype
         sa = self.self_attn(
             tgt, tgt, key_padding_mask=tgt_padding_mask,
-            query_padding_mask=tgt_padding_mask, causal=True,
+            query_padding_mask=tgt_padding_mask, causal=True, generator=generator,
         )
-        tgt = layer_norm(self.norm1, tgt + sa, cdt)
-        ca = self.multihead_attn(tgt, memory, key_padding_mask=memory_padding_mask)
-        tgt = layer_norm(self.norm2, tgt + ca, cdt)
-        return layer_norm(self.norm3, tgt + self.feed_forward(tgt), cdt)
+        tgt = layer_norm(self.norm1, tgt + self.drop(sa, generator), cdt)
+        ca = self.multihead_attn(tgt, memory, key_padding_mask=memory_padding_mask,
+                                 generator=generator)
+        tgt = layer_norm(self.norm2, tgt + self.drop(ca, generator), cdt)
+        ff = self.feed_forward(tgt, generator)
+        return layer_norm(self.norm3, tgt + self.drop(ff, generator), cdt)
 
     def project_cross_kv(self, memory):
         """Project memory into this layer's cross-attention K/V once."""
@@ -121,30 +133,32 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
-                 relative_positional_distance: int):
+                 relative_positional_distance: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([
-            TransformerEncoderLayer(d_model, num_heads, d_ff, relative_positional_distance)
+            TransformerEncoderLayer(d_model, num_heads, d_ff, relative_positional_distance,
+                                    dropout)
             for _ in range(num_layers)
         ])
 
-    def forward(self, src, src_padding_mask):
+    def forward(self, src, src_padding_mask, generator=None):
         for layer in self.layers:
-            src = layer(src, src_padding_mask)
+            src = layer(src, src_padding_mask, generator)
         return src
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int):
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList([
-            TransformerDecoderLayer(d_model, num_heads, d_ff)
+            TransformerDecoderLayer(d_model, num_heads, d_ff, dropout)
             for _ in range(num_layers)
         ])
 
-    def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask):
+    def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask, generator=None):
         for layer in self.layers:
-            tgt = layer(tgt, memory, tgt_padding_mask, memory_padding_mask)
+            tgt = layer(tgt, memory, tgt_padding_mask, memory_padding_mask, generator)
         return tgt
 
     def project_cross_kvs(self, memory):

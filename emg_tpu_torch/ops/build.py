@@ -30,7 +30,7 @@ log = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emg_tpu_torch_kernels"
-SOURCES = ("iir_scan", "flash_attention_relpos")
+SOURCES = ("iir_scan", "flash_attention_relpos", "flash_attention_relpos_train")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -42,8 +42,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# training attention: tensor pointers, (B, H, T, Dh, keep threshold),
+# keep probability, stream
+_TRAIN_FWD = [_P] * 9 + [_I] * 5 + [_F, _P]
+_TRAIN_BWD = [_P] * 12 + [_I] * 5 + [_F, _P]
 # argument types of every C entry point, by library
 SIGNATURES = {
+    "flash_attention_relpos_train": {
+        "flash_train_fwd_f32": _TRAIN_FWD,
+        "flash_train_fwd_bf16": _TRAIN_FWD,
+        "flash_train_bwd_dq_f32": _TRAIN_BWD,
+        "flash_train_bwd_dq_bf16": _TRAIN_BWD,
+        "flash_train_bwd_dkv_f32": _TRAIN_BWD,
+        "flash_train_bwd_dkv_bf16": _TRAIN_BWD,
+    },
     "iir_scan": {
         "iir_scan_f32": [_P] * 8 + [_I, _I, _I, _P],
     },

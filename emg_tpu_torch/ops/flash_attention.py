@@ -16,6 +16,18 @@ meaningless: callers drop them.
 On the card it is the kernel in ``csrc/flash_attention_relpos.cu`` (the
 source says what bounds it: operations). On a CPU tensor it is the plain
 version below, which builds the full (B, H, T, T) logits.
+
+The training twin, ``flash_attention_relpos_train``, is the counterpart of
+the JAX package's ``flash_attention_relpos_train`` (its three Pallas kernels
+``_flash_train_fwd``, ``_flash_train_bwd`` dq and dk/dv): the same
+attention with post-softmax dropout, differentiable in q, k, v and the
+window ``used``. On the card ``FlashAttentionRelposTrain`` ties the three
+kernels of ``csrc/flash_attention_relpos_train.cu`` together: forward with
+the saved logsumexp (K3), then dq and d_used (K4) and dk, dv (K5). Each
+kernel has a plain version here, and on a CPU tensor the whole call is the
+plain forward, differentiated by autograd. The dropout mask is the JAX
+package's counter-based hash (``keep_mask``), a function of (seed, b, h,
+query, key) alone, so every version draws the same mask.
 """
 
 from __future__ import annotations
@@ -111,3 +123,279 @@ def flash_attention_relpos(q, k, v, used, oob, key_pad):
 
 
 flash_attention_relpos.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: forward with logsumexp and hash dropout (K3), backward dq and
+# d_used (K4), backward dk and dv (K5)
+# ---------------------------------------------------------------------------
+
+KEEP_BITS = 30  # the keep test compares the hash's low 30 bits
+TRAIN_TILE = 64  # the training kernels take T a multiple of this
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """A hash keeps an element when its low 30 bits fall below this."""
+    return int(round((1.0 - rate) * (1 << KEEP_BITS)))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): two partial products,
+    each below 2^48, so nothing overflows int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def keep_mask(seed, b, h, qg, kg, rate: float) -> torch.Tensor:
+    """The dropout keep mask (bool) of the JAX package's ``_keep_mask``
+    (ops/pallas/flash_attention.py:222-242), bit for bit: a murmur3
+    finalizer over (seed, batch b, head h, global query qg, global key kg)
+    in uint32 arithmetic, emulated on int64 tensors masked to 32 bits after
+    each step (torch has no unsigned 32-bit multiply). The index arguments
+    broadcast against each other; ``seed`` is an int or an integer tensor."""
+    seed = torch.as_tensor(seed).to(torch.int64) & _M32
+    x = (seed + b * 0x9E3779B9 + h * 0xCC9E2D51 + qg * 0x1B873593
+         + kg * 0xC2B2AE35) & _M32
+    for mul in (0x85EBCA6B, 0xC2B2AE35):
+        x = x ^ (x >> 16)
+        x = _mul32(x, mul)
+    x = x ^ (x >> 16)
+    return (x & ((1 << KEEP_BITS) - 1)) < keep_threshold(rate)
+
+
+def _keep(seed, shape, rate: float, device) -> torch.Tensor:
+    """(B, H, T, T) float32 0/1 keep mask over the global indices."""
+    B, H, T, _ = shape
+    idx = [torch.arange(n, device=device, dtype=torch.int64) for n in (B, H, T)]
+    return keep_mask(seed, idx[0][:, None, None, None], idx[1][None, :, None, None],
+                     idx[2][None, None, :, None], idx[2][None, None, None, :], rate).float()
+
+
+def _keep_scale(seed, shape, rate: float, device) -> torch.Tensor:
+    """keep / keep_prob, divided in float32 as the kernels do."""
+    return _keep(seed, shape, rate, device) / torch.tensor(1.0 - rate, dtype=torch.float32)
+
+
+def _round_like(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Round to bfloat16 where the kernels do (before a product)."""
+    return x.to(torch.bfloat16).float() if dtype == torch.bfloat16 else x
+
+
+def _train_logits(q, k, used, oob, key_pad):
+    B, H, T, Dh = q.shape
+    qf, kf, uf = q.float(), k.float(), used.to(q.dtype).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (1.0 / Dh ** 0.5)
+    rel = torch.einsum("bhqd,hmd->bhqm", qf, uf) + oob.float()
+    s = s + torch.gather(rel, 3, relative_index(T, q.device).expand(B, H, T, T))
+    return s + torch.where(key_pad, NEG_FILL, 0.0).to(torch.float32)[:, None, None, :]
+
+
+def flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate: float, seed):
+    """Plain version of K3: (o, lse), o (B, H, T, Dh) float32 with
+    o_i = sum_j keep * exp(s - m_i) v_j / (l_i * keep_prob), l_i the
+    undropped normalizer, lse (B, H, T) = m + log l. Differentiable in q,
+    k, v and used (the row max enters only as a constant shift)."""
+    s = _train_logits(q, k, used, oob, key_pad)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        e = e * _keep(seed, s.shape, rate, q.device)
+    e = _round_like(e, q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", e, v.float()) / (l * (1.0 - rate))
+    return o, (m + torch.log(l))[..., 0]
+
+
+def flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate: float, seed):
+    """The plain training attention: K3's plain forward, whose gradients
+    autograd takes (the CPU path of ``flash_attention_relpos_train``)."""
+    return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed)[0]
+
+
+def _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed):
+    """p = exp(s - lse), keep / keep_prob (or None), and
+    ds = p * (keep * (dO . v) / keep_prob - delta), as the backward kernels
+    recompute them."""
+    p = torch.exp(_train_logits(q, k, used, oob, key_pad) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    ks = _keep_scale(seed, p.shape, rate, q.device) if rate > 0.0 else None
+    if ks is not None:
+        dp = dp * ks
+    return p, ks, p * (dp - delta[..., None])
+
+
+def flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+    """Plain version of K4: (dq, d_used), float32. dq = scale * ds.k +
+    dR.used and d_used[h] = sum_b dR^T.q, with dR the (B, H, T, 2T-1) map of
+    ds to relative index j - i + T - 1."""
+    B, H, T, Dh = q.shape
+    _, _, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    ds = _round_like(ds, q.dtype)
+    dR = torch.zeros((B, H, T, 2 * T - 1), dtype=torch.float32, device=q.device)
+    dR.scatter_(3, relative_index(T, q.device).expand(B, H, T, T), ds)
+    qf = q.float()
+    dq = (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * (1.0 / Dh ** 0.5)
+          + torch.einsum("bhqm,hmd->bhqd", dR, used.to(q.dtype).float()))
+    return dq, torch.einsum("bhqm,bhqd->hmd", dR, qf)
+
+
+def flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+    """Plain version of K5: (dk, dv), float32. dv = (keep * p /
+    keep_prob)^T.dO, dk = scale * ds^T.q."""
+    Dh = q.shape[-1]
+    p, ks, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    pd = _round_like(p * ks if ks is not None else p, q.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dout.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", _round_like(ds, q.dtype), q.float()) * (1.0 / Dh ** 0.5)
+    return dk, dv
+
+
+def _check_train(q, k, v, used, oob, key_pad, rate, seed):
+    _check(q, k, v, used, oob, key_pad)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    if (not isinstance(seed, torch.Tensor) or seed.numel() != 1 or seed.dtype != torch.int32
+            or seed.device != q.device):
+        raise ValueError("seed must be a one-element int32 tensor on the inputs' device")
+
+
+def _cuda_ready(name, q, *tensors):
+    """Raise unless the inputs can go to a training kernel; return them
+    contiguous."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    T, Dh = q.shape[2], q.shape[3]
+    if T % TRAIN_TILE or Dh > MAX_HEAD_DIM:
+        raise ValueError(
+            f"the kernel takes T a multiple of {TRAIN_TILE} and Dh <= {MAX_HEAD_DIM}, got T={T}, Dh={Dh}"
+        )
+    return [t.contiguous() for t in tensors]
+
+
+def _bwd_check(q, dout, lse, delta):
+    B, H, T, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("dout must match q in shape and dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, T) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be a float32 ({B}, {H}, {T}) tensor on q's device")
+
+
+def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed):
+    """K3: (o (B, H, T, Dh), lse (B, H, T)), both float32. ``seed`` is a
+    one-element int32 tensor on the inputs' device. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    if q.device.type == "cpu":
+        return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed)
+    q, k, v, oob, key_pad, seed = _cuda_ready("flash_train_fwd", q, q, k, v,
+                                              oob.to(torch.float32), key_pad, seed)
+    used = used.to(q.dtype).contiguous()
+    B, H, T, Dh = q.shape
+    o = torch.empty((B, H, T, Dh), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = build.library("flash_attention_relpos_train")
+    fn = lib.flash_train_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_train_fwd_f32
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), used.data_ptr(), oob.data_ptr(),
+              key_pad.data_ptr(), seed.data_ptr(), o.data_ptr(), lse.data_ptr(),
+              B, H, T, Dh, keep_threshold(rate), 1.0 - rate, build.current_stream_ptr(q.device))
+    build.check("flash_attention_relpos_train", code)
+    flash_train_fwd.launches += 1
+    return o, lse
+
+
+def _launch_bwd(name, q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, g1, g2):
+    q, k, v, oob, key_pad, seed, dout, lse, delta = _cuda_ready(
+        name, q, q, k, v, oob.to(torch.float32), key_pad, seed, dout, lse, delta)
+    used = used.to(q.dtype).contiguous()
+    B, H, T, Dh = q.shape
+    lib = build.library("flash_attention_relpos_train")
+    fn = getattr(lib, f"{name}_{'bf16' if q.dtype == torch.bfloat16 else 'f32'}")
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), used.data_ptr(), oob.data_ptr(),
+              key_pad.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), g1.data_ptr(), g2.data_ptr(), B, H, T, Dh,
+              keep_threshold(rate), 1.0 - rate, build.current_stream_ptr(q.device))
+    build.check("flash_attention_relpos_train", code)
+    return g1, g2
+
+
+def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+    """K4: (dq (B, H, T, Dh), d_used (H, 2T-1, Dh)), both float32. ``dout``
+    is the output's gradient at the input dtype, ``lse`` K3's saved
+    logsumexp, ``delta`` = rowsum(dout * o) (B, H, T) float32. d_used sums
+    over blocks with atomics: its float32 rounding changes from run to run."""
+    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    _bwd_check(q, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    B, H, T, Dh = q.shape
+    dq = torch.empty((B, H, T, Dh), dtype=torch.float32, device=q.device)
+    dused = torch.zeros((H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
+    out = _launch_bwd("flash_train_bwd_dq", q, k, v, used, oob, key_pad, dout, lse, delta,
+                      rate, seed, dq, dused)
+    flash_train_bwd_dq.launches += 1
+    return out
+
+
+def flash_train_bwd_dkv(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+    """K5: (dk, dv), each (B, H, T, Dh) float32; arguments as K4's."""
+    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    _bwd_check(q, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = _launch_bwd("flash_train_bwd_dkv", q, k, v, used, oob, key_pad, dout, lse, delta,
+                      rate, seed, dk, dv)
+    flash_train_bwd_dkv.launches += 1
+    return out
+
+
+flash_train_fwd.launches = 0
+flash_train_bwd_dq.launches = 0
+flash_train_bwd_dkv.launches = 0
+
+
+class FlashAttentionRelposTrain(torch.autograd.Function):
+    """The training attention through K3 (forward), then K4 and K5
+    (backward). Saves q, k, v, used, oob, key_pad, o, lse and seed. The
+    gradients of oob and key_pad are zero (None), as in the JAX package;
+    d_used arrives at used's dtype, the rest at the input dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, used, oob, key_pad, seed, rate):
+        o, lse = flash_train_fwd(q, k, v, used, oob, key_pad, rate, seed)
+        ctx.save_for_backward(q, k, v, used, oob, key_pad, o, lse, seed)
+        ctx.rate = rate
+        return o
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, used, oob, key_pad, o, lse, seed = ctx.saved_tensors
+        grad = grad.float()
+        # delta uses the dropped output, as the JAX backward (:518)
+        delta = (grad * o).sum(dim=-1)
+        dout = grad.to(q.dtype)
+        args = (q, k, v, used, oob, key_pad, dout, lse, delta, ctx.rate, seed)
+        dq, dused = flash_train_bwd_dq(*args)
+        dk, dv = flash_train_bwd_dkv(*args)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dused.to(used.dtype),
+                None, None, None, None)
+
+
+def flash_attention_relpos_train(q, k, v, used, oob, key_pad, dropout_rate: float, seed):
+    """Differentiable training attention: q, k, v (B, H, T, Dh) float32 or
+    bfloat16, used (H, 2T-1, Dh), oob (2T-1,), key_pad (B, T) bool,
+    ``dropout_rate`` on the probabilities, ``seed`` a one-element int32
+    tensor on the inputs' device. Returns o (B, H, T, Dh) float32.
+
+    A CPU tensor takes the plain version under autograd. A CUDA tensor goes
+    through ``FlashAttentionRelposTrain`` (T a multiple of 64, Dh <= 128) or
+    raises; there is no fallback."""
+    rate = float(dropout_rate)
+    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    if q.device.type == "cpu":
+        return flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate, seed)
+    return FlashAttentionRelposTrain.apply(q, k, v, used, oob, key_pad, seed, rate)

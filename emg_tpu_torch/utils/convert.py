@@ -11,6 +11,9 @@ the PyTorch state dict in the reference's key names, which the port's
   LayerNorm / BatchNorm scale    -> weight
   BatchNorm batch_stats mean/var -> running_mean / running_var
   rel-pos embeddings (H, N, D)   -> (H, N, D, 1)
+
+``load_adamw_from_flax`` carries the JAX optimizer's moments across too,
+so a test can start the port's train step mid-run from a JAX train state.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def state_dict_from_flax(variables: Mapping[str, Any], num_layers_encoder: int =
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, value):
-        sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+        # a copy: a JAX array's numpy view is read-only
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
 
     def conv(src, dst):
         put(dst + ".weight", np.asarray(src["kernel"]).transpose(2, 1, 0))
@@ -92,3 +96,25 @@ def state_dict_from_flax(variables: Mapping[str, Any], num_layers_encoder: int =
     dense(params["w_aux"], "w_aux")
     dense(params["w_out"], "w_out")
     return sd
+
+
+def load_adamw_from_flax(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                         opt_state: Any, batch_stats: Mapping[str, Any],
+                         num_layers_encoder: int = 6, num_layers_decoder: int = 6) -> None:
+    """Carry the JAX package's ``fused_adamw`` state (``count``, ``mu``,
+    ``nu``, each moment a params-shaped tree) into the port's AdamW, in
+    place, so a run can continue from a JAX train state. The moments map
+    to parameters through the same names as ``state_dict_from_flax``."""
+
+    def as_state_dict(tree):
+        return state_dict_from_flax({"params": tree, "batch_stats": batch_stats},
+                                    num_layers_encoder, num_layers_decoder)
+
+    mu, nu = as_state_dict(opt_state.mu), as_state_dict(opt_state.nu)
+    step = float(np.asarray(opt_state.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
