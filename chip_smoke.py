@@ -4,7 +4,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel)
-     and print the card's name and power limit;
+     and print the card's name and power limit; per kernel, ptxas's
+     registers and spill bytes and whether its SASS holds tensor-core
+     instructions (HMMA: mma.sync, HGMMA: wgmma); the forward attention
+     kernels (K2, K3) must;
   2. kernel 1 (iir_scan) against its plain PyTorch version on the card;
   3. kernel 2 (flash_attention_relpos) against its plain version, with
      scaled_dot_product_attention over a materialized bias timed beside it
@@ -46,6 +49,7 @@ import glob
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,7 +61,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+F32_CUDA_CORE_FLOPS = 67e12  # K1's recurrence: scalar float32
+# the attention kernels (K2-K5), dense tensor-core rates: bf16, and float32
+# at float32 accuracy as 3xTF32 (three TF32 passes: 495 / 3)
+ATTN_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 K1_TOL = 2e-4  # relative to the output's magnitude
 K2_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}  # bf16: ~2 bf16 ulps of |out|
 MEMORY_TOL = 2e-3
@@ -138,6 +145,63 @@ def bound(bytes_moved: float, flops: float, peak: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 1: what the kernels compiled to
+# ---------------------------------------------------------------------------
+
+def demangle(names):
+    """C++ names of the mangled ``names``, by the toolkit's cu++filt."""
+    from emg_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    return subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                          check=True, timeout=60).stdout.splitlines()
+
+
+def kernel_resources(record):
+    """Per kernel of each library: ptxas's registers and spill bytes (from
+    the build's log) and the tensor-core instructions in its SASS
+    (cuobjdump -sass): HMMA is mma.sync, HGMMA wgmma. Fails unless every
+    forward attention kernel (flash_fwd_kernel: K2 and K3) has some."""
+    from emg_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    rows = []
+    for lib in build.SOURCES:
+        kernels, current = {}, None
+        for line in build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                current = kernels.setdefault(m.group(1), {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and current is not None:
+                current["spill_store_bytes"], current["spill_load_bytes"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and current is not None:
+                current["registers"] = int(m.group(1))
+        sass = subprocess.run([cuobjdump, "-sass", str(build._library_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = kernels.setdefault(m.group(1), {})
+                current.update(HMMA=0, HGMMA=0)
+            elif current is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        current[op] += 1
+                        break
+        for mangled, name in zip(kernels, demangle(list(kernels))):
+            row = dict(library=lib, kernel=name, **kernels[mangled])
+            rows.append(row)
+            log(f"kernel {json.dumps(row)}")
+    record["kernel_resources"] = rows
+    forward = [r for r in rows if "flash_fwd_kernel" in r["kernel"]]
+    if not forward or not all(r.get("HMMA", 0) + r.get("HGMMA", 0) > 0 for r in forward):
+        raise AssertionError(f"a forward attention kernel holds no tensor-core instruction: {forward}")
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernel 1
 # ---------------------------------------------------------------------------
 
@@ -163,7 +227,7 @@ def check_iir_scan(record):
                 ms = time_ms(lambda: iir_scan(*args, reverse=reverse))
                 wrapper_ms = call_ms(lambda: iir_scan(*args, reverse=reverse))
                 plain_ms = time_ms(lambda: iir_scan_plain(*args, reverse=reverse))
-                b_ms, b_by = bound(16.0 * R * T, 8.0 * R * T, PEAK_FLOPS[torch.float32])
+                b_ms, b_by = bound(16.0 * R * T, 8.0 * R * T, F32_CUDA_CORE_FLOPS)
                 row = dict(R=R, T=T, reverse=reverse, max_abs_err=err, rel_err=err / scale,
                            ms=ms, call_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by)
@@ -240,7 +304,7 @@ def check_flash_attention(record):
                     bytes_moved = (3 * B * H * T * Dh + H * (2 * T - 1) * Dh) * size \
                         + (2 * T - 1) * 4 + B * T + B * H * T * Dh * 4
                     flops = 6.0 * B * H * T * T * Dh  # q.k, q.used and p.v per (i, j)
-                    b_ms, b_by = bound(bytes_moved, flops, PEAK_FLOPS[dtype])
+                    b_ms, b_by = bound(bytes_moved, flops, ATTN_PEAK_FLOPS[dtype])
                     row.update(ms=time_ms(run), call_ms=call_ms(run), plain_ms=plain_ms,
                                library_ms=library_ms,
                                bound_ms=b_ms, bound_by=b_by,
@@ -271,9 +335,9 @@ def train_attention_bounds(B, H, T, Dh, dtype):
     bwd_in = 4 * n * size + common + 2 * rows  # q, k, v, dO, ..., lse, delta
     work = B * H * T * T * Dh
     return {
-        "flash_train_fwd": bound(3 * n * size + common + n * 4 + rows, 6.0 * work, PEAK_FLOPS[dtype]),
-        "flash_train_bwd_dq": bound(bwd_in + n * 4 + window * 4, 12.0 * work, PEAK_FLOPS[dtype]),
-        "flash_train_bwd_dkv": bound(bwd_in + 2 * n * 4, 10.0 * work, PEAK_FLOPS[dtype]),
+        "flash_train_fwd": bound(3 * n * size + common + n * 4 + rows, 6.0 * work, ATTN_PEAK_FLOPS[dtype]),
+        "flash_train_bwd_dq": bound(bwd_in + n * 4 + window * 4, 12.0 * work, ATTN_PEAK_FLOPS[dtype]),
+        "flash_train_bwd_dkv": bound(bwd_in + 2 * n * 4, 10.0 * work, ATTN_PEAK_FLOPS[dtype]),
     }
 
 
@@ -787,12 +851,13 @@ def profile_step(run) -> dict:
         raise AssertionError("the profiler saw no device work in a train step")
     busy = sum(by_name.values())
     span = (last - first) / 1e3
-    attention = sum(ms for name, ms in by_name.items() if "flash_train" in name)
+    attention = {name: ms for name, ms in by_name.items() if "flash_" in name}
     result = dict(wall_ms=wall, walls_ms=walls, profiled_wall_ms=profiled_wall,
                   device_busy_ms=busy, device_span_ms=span,
                   device_idle_share_of_wall=1.0 - busy / wall,
                   device_idle_share_of_span=1.0 - busy / span,
-                  train_attention_kernels_ms=attention,
+                  train_attention_kernels_ms=sum(attention.values()),
+                  train_attention_kernels_by_name=attention,
                   longest_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
     log(f"train step profile {json.dumps(result)}")
     return result
@@ -907,6 +972,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     record["card"] = smi
     log(f"built in {record['build_s']:.1f} s; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernel_resources(record)
 
     log("phase 2: kernel 1 vs plain")
     k1 = check_iir_scan(record)

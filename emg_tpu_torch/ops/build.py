@@ -4,9 +4,12 @@ Each source under ``ops/csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/emg_tpu_torch_kernels/`` at the root of the checkout, then loaded
 with ``ctypes``. All sources compile in parallel, one ``nvcc`` each, on
-first use; a library is named after a hash of its source and flags, so a
-later process reuses it. Nothing here runs at import time, and nothing
-includes PyTorch's headers, so a build takes seconds.
+first use; a library is named after a hash of its source, every header
+under ``csrc/`` and the flags, so a later process reuses it and a change to
+a shared header rebuilds every library. nvcc's output (ptxas's registers
+and spills per kernel) is kept beside each library as ``.log``. Nothing
+here runs at import time, and nothing includes PyTorch's headers, so a
+build takes seconds.
 
 A wrapper passes tensor pointers (``tensor.data_ptr()``) and PyTorch's
 current stream; each C entry point returns ``cudaGetLastError()`` after its
@@ -83,9 +86,16 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the library ``name`` (built by ``load_kernels``)."""
+    return _library_path(name).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=1)
@@ -111,6 +121,7 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
             os.unlink(tmp)
             failures.append(f"{name} (exit {proc.returncode}):\n{out}")
         else:
+            target.with_suffix(".log").write_text(out)
             os.replace(tmp, target)
     if failures:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))

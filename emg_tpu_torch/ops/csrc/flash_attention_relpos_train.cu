@@ -25,12 +25,16 @@
 // logit; padded query rows are not masked (their outputs are meaningless and
 // their incoming gradient is zero), as in the TPU kernels.
 //
+// K3 is the forward shared with serving, flash_fwd_relpos.cuh, with its
+// training flag set (saved lse, dropout, division by keep_prob): tensor
+// cores, bf16 mma and float32 as 3xTF32. The header says how it is built.
+//
 // The keep mask is the TPU kernels' counter-based hash (_keep_mask,
 // flash_attention.py:222-242), bit for bit: a murmur3 finalizer over
 // (seed, b, h, global query, global key) in uint32 arithmetic, keeping the
-// low 30 bits below round((1 - rate) * 2^30). It depends only on global
-// indices, so the three kernels, the plain PyTorch version and the TPU
-// kernels all draw the same mask, whatever their tiling.
+// low 30 bits below round((1 - rate) * 2^30) (`keep`, in the header). It
+// depends only on global indices, so the three kernels, the plain PyTorch
+// version and the TPU kernels all draw the same mask, whatever their tiling.
 //
 // dtypes: q, k, v, used and dO arrive as float32 or bfloat16; every sum is
 // float32 and every output is float32 (the wrapper casts gradients to the
@@ -38,22 +42,21 @@
 // ds (and keep*p/keep_prob) before the products that follow, as the TPU
 // kernels' `.astype(vs.dtype)` does.
 //
-// What bounds them on an H100: operations. Per (b, h), K3 does about
-// 6*T*T*Dh flops (q.k, q.used, p.v), K4 about 12*T*T*Dh (q.k, q.used, dO.v,
-// ds.k, ds.used, ds^T.q) and K5 about 10*T*T*Dh (q.k, q.used, dO.v, p^T.dO,
-// ds^T.q), against ~4*T*Dh values read (q, k, v, dO) plus the (2T-1, Dh)
-// window per head: at T >= 128, Dh = 96 the ratio of operations to bytes is
-// far above the card's. The products are scalar float32 FMAs, a simple
-// design that is right; tensor cores (mma.sync / wgmma) with TMA staging are
-// later work.
+// What bounds K4 and K5 on an H100: operations. Per (b, h), K4 does about
+// 12*T*T*Dh flops (q.k, q.used, dO.v, ds.k, ds.used, ds^T.q) and K5 about
+// 10*T*T*Dh (q.k, q.used, dO.v, p^T.dO, ds^T.q), against ~4*T*Dh values
+// read (q, k, v, dO) plus the (2T-1, Dh) window per head: at T >= 128,
+// Dh = 96 the ratio of operations to bytes is far above the card's. Their
+// products are scalar float32 FMAs, a simple design that is right; tensor
+// cores, as K3 has them, are later work.
 //
-// Design, as the serving kernel (flash_attention_relpos.cu): the TPU kernels
-// formed q.used over the whole window and rolled rows to meet Mosaic's lane
-// alignment. Here a block stages, per tile, the band of rows of `used` that
-// the tile touches (rows padded to an odd stride so a warp's diagonal reads
-// hit distinct banks) and forms q.used for exactly the (i, j) it owns.
-//   K3, K4: a block owns kBQ = 32 query rows of one (b, h) and walks key
-//     tiles of kBK = 64; each warp owns 8 rows, a lane keys lane, lane + 32.
+// Design of K4 and K5: the TPU kernels formed q.used over the whole window
+// and rolled rows to meet Mosaic's lane alignment. Here a block stages, per
+// tile, the band of rows of `used` that the tile touches (rows padded to an
+// odd stride so a warp's diagonal reads hit distinct banks) and forms
+// q.used for exactly the (i, j) it owns.
+//   K4: a block owns kBQ = 32 query rows of one (b, h) and walks key tiles
+//     of kBK = 64; each warp owns 8 rows, a lane keys lane, lane + 32.
 //   K5: a block owns kKB = 32 keys of one (b, h) and walks query tiles of
 //     kQT = 64; each warp owns 8 keys, a lane queries lane, lane + 32.
 // d_used is a sum over b and over query tiles of every head's window. The
@@ -66,11 +69,7 @@
 // run, so d_used differs between runs by float32 rounding (relative ~1e-6
 // of its magnitude); dq, dk and dv are deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "flash_fwd_relpos.cuh"
 
 namespace {
 
@@ -78,7 +77,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDh = 128;
 constexpr int kDt = kMaxDh / 32;  // head dims a lane owns, at most
-// K3, K4
+// K4
 constexpr int kBQ = 32;
 constexpr int kBK = 64;
 constexpr int kRowsPerWarp = kBQ / kWarps;  // 8
@@ -88,9 +87,6 @@ constexpr int kKB = 32;
 constexpr int kQT = 64;
 constexpr int kKeysPerWarp = kKB / kWarps;  // 8
 constexpr int kBand5 = kKB + kQT - 1;
-
-constexpr float kNegFill = -1e8f;
-constexpr uint32_t kKeepAll = 1u << 30;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -103,19 +99,6 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
 
 __host__ __device__ constexpr int odd_stride(int dh) { return dh | 1; }
 
-// _keep_mask of the TPU kernels, in uint32 arithmetic
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t b, uint32_t h,
-                                     uint32_t i, uint32_t j, uint32_t thresh) {
-  uint32_t x = seed + b * 0x9E3779B9u + h * 0xCC9E2D51u + i * 0x1B873593u +
-               j * 0xC2B2AE35u;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 16;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (x & (kKeepAll - 1u)) < thresh;
-}
-
 // keep * scale_kept, with no mask work when nothing is dropped
 __device__ __forceinline__ float keep_scale(bool dropping, uint32_t seed,
                                             uint32_t b, uint32_t h, uint32_t i,
@@ -123,166 +106,6 @@ __device__ __forceinline__ float keep_scale(bool dropping, uint32_t seed,
                                             float kept) {
   if (!dropping) return kept;
   return keep(seed, b, h, i, j, thresh) ? kept : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// K3: forward with saved lse and post-softmax dropout
-// ---------------------------------------------------------------------------
-
-__host__ __device__ inline size_t fwd_smem_floats(int dh) {
-  return static_cast<size_t>(kBQ) * dh               // Q
-         + static_cast<size_t>(kBK) * odd_stride(dh)   // K
-         + static_cast<size_t>(kBK) * dh               // V
-         + static_cast<size_t>(kBand) * odd_stride(dh) // used band
-         + static_cast<size_t>(kBQ) * kBK;             // P
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ used,
-                       const float* __restrict__ oob,
-                       const unsigned char* __restrict__ key_pad,
-                       const int* __restrict__ seed_ptr,
-                       float* __restrict__ out, float* __restrict__ lse,
-                       int H, int Tn, int Dh, float scale, uint32_t thresh,
-                       float keep_prob) {
-  extern __shared__ float smem[];
-  const int ks = odd_stride(Dh);
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * Dh;
-  float* Vs = Ks + kBK * ks;
-  float* Us = Vs + kBK * Dh;
-  float* Ps = Us + kBand * ks;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool dropping = thresh < kKeepAll;
-  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-
-  const size_t bh = (static_cast<size_t>(b) * H + h) * Tn * Dh;
-  const T* qb = q + bh;
-  const T* kb = k + bh;
-  const T* vb = v + bh;
-  const T* ub = used + static_cast<size_t>(h) * (2 * Tn - 1) * Dh;
-  const unsigned char* kpb = key_pad + static_cast<size_t>(b) * Tn;
-
-  for (int e = tid; e < kBQ * Dh; e += kThreads) {
-    Qs[e] = to_f32(qb[static_cast<size_t>(q0) * Dh + e]);
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kDt];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = __int_as_float(0xff800000);  // -inf
-    l[rr] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) acc[rr][t] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tn; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < kBK * Dh; e += kThreads) {
-      const int j = e / Dh, d = e - j * Dh;
-      const size_t g = static_cast<size_t>(k0 + j) * Dh + d;
-      Ks[j * ks + d] = to_f32(kb[g]);
-      Vs[e] = to_f32(vb[g]);
-    }
-    // band rows r0 .. r0 + kBand - 1 of used; inside [0, 2T - 2] because
-    // the tiles lie inside [0, T)
-    const int r0 = k0 - q0 - kBQ + Tn;
-    for (int e = tid; e < kBand * Dh; e += kThreads) {
-      const int r = e / Dh, d = e - r * Dh;
-      Us[r * ks + d] = to_f32(ub[static_cast<size_t>(r0 + r) * Dh + d]);
-    }
-    __syncthreads();
-
-    float sqk[kRowsPerWarp][2], squ[kRowsPerWarp][2];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      sqk[rr][0] = sqk[rr][1] = 0.f;
-      squ[rr][0] = squ[rr][1] = 0.f;
-    }
-    for (int d = 0; d < Dh; ++d) {
-      const float k_a = Ks[lane * ks + d];
-      const float k_b = Ks[(lane + 32) * ks + d];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int il = warp * kRowsPerWarp + rr;
-        const float qv = Qs[il * Dh + d];
-        const int band = lane - il + kBQ - 1;  // column lane; lane+32 is +32
-        sqk[rr][0] = fmaf(qv, k_a, sqk[rr][0]);
-        sqk[rr][1] = fmaf(qv, k_b, sqk[rr][1]);
-        squ[rr][0] = fmaf(qv, Us[band * ks + d], squ[rr][0]);
-        squ[rr][1] = fmaf(qv, Us[(band + 32) * ks + d], squ[rr][1]);
-      }
-    }
-
-    const int ja = k0 + lane, jb = ja + 32;
-    const float kp_a = kpb[ja] ? kNegFill : 0.f;
-    const float kp_b = kpb[jb] ? kNegFill : 0.f;
-    float alpha[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int il = warp * kRowsPerWarp + rr;
-      const int i = q0 + il;
-      const int ra = ja - i + Tn - 1;
-      const float s_a = (sqk[rr][0] * scale + (squ[rr][0] + oob[ra])) + kp_a;
-      const float s_b = (sqk[rr][1] * scale + (squ[rr][1] + oob[ra + 32])) + kp_b;
-      float mx = fmaxf(s_a, s_b);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[rr], mx);
-      float p_a = expf(s_a - m_new);
-      float p_b = expf(s_b - m_new);
-      float sum = p_a + p_b;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      alpha[rr] = expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha[rr] + sum;  // the undropped normalizer
-      m[rr] = m_new;
-      p_a *= keep_scale(dropping, seed, b, h, i, ja, thresh, 1.f);
-      p_b *= keep_scale(dropping, seed, b, h, i, jb, thresh, 1.f);
-      Ps[il * kBK + lane] = round_like(p_a, q);
-      Ps[il * kBK + lane + 32] = round_like(p_b, q);
-    }
-    __syncwarp();  // a warp reads back only its own rows of Ps
-
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) {
-      const int dd = lane + 32 * t;
-      if (dd < Dh) {
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr][t] *= alpha[rr];
-        for (int j = 0; j < kBK; ++j) {
-          const float vv = Vs[j * Dh + dd];
-#pragma unroll
-          for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-            acc[rr][t] = fmaf(Ps[(warp * kRowsPerWarp + rr) * kBK + j], vv, acc[rr][t]);
-          }
-        }
-      }
-    }
-  }
-
-  float* ob = out + bh;
-  float* lb = lse + (static_cast<size_t>(b) * H + h) * Tn;
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int i = q0 + warp * kRowsPerWarp + rr;
-    const float denom = l[rr] * keep_prob;
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) {
-      const int dd = lane + 32 * t;
-      if (dd < Dh) ob[static_cast<size_t>(i) * Dh + dd] = acc[rr][t] / denom;
-    }
-    if (lane == 0) lb[i] = m[rr] + logf(l[rr]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -654,15 +477,8 @@ int launch_fwd(const T* q, const T* k, const T* v, const T* used,
                const float* oob, const unsigned char* key_pad, const int* seed,
                float* out, float* lse, int B, int H, int Tn, int Dh,
                int thresh, float keep_prob, cudaStream_t stream) {
-  if (bad_shape(B, H, Tn, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = fwd_smem_floats(Dh) * sizeof(float);
-  cudaError_t err = set_smem(flash_train_fwd_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.0f / sqrtf(static_cast<float>(Dh));
-  flash_train_fwd_kernel<T><<<dim3(Tn / kBQ, H, B), kThreads, bytes, stream>>>(
-      q, k, v, used, oob, key_pad, seed, out, lse, H, Tn, Dh, scale,
-      static_cast<uint32_t>(thresh), keep_prob);
-  return static_cast<int>(cudaGetLastError());
+  return fwd::launch<T, true>(q, k, v, used, oob, key_pad, seed, out, lse, B, H, Tn, Dh,
+                              static_cast<uint32_t>(thresh), keep_prob, stream);
 }
 
 template <typename T>

@@ -13,9 +13,11 @@ window(T)``. Padded keys get -1e8 ADDED to their logit (the TPU kernel's
 semantics); padded query rows are not masked, and their outputs are
 meaningless: callers drop them.
 
-On the card it is the kernel in ``csrc/flash_attention_relpos.cu`` (the
-source says what bounds it: operations). On a CPU tensor it is the plain
-version below, which builds the full (B, H, T, T) logits.
+On the card it is the kernel in ``csrc/flash_attention_relpos.cu``, the
+forward of ``csrc/flash_fwd_relpos.cuh`` shared with training (the header
+says what bounds it, operations, and how it uses the tensor cores). On a
+CPU tensor it is the plain version below, which builds the full
+(B, H, T, T) logits.
 
 The training twin, ``flash_attention_relpos_train``, is the counterpart of
 the JAX package's ``flash_attention_relpos_train`` (its three Pallas kernels
@@ -23,11 +25,12 @@ the JAX package's ``flash_attention_relpos_train`` (its three Pallas kernels
 attention with post-softmax dropout, differentiable in q, k, v and the
 window ``used``. On the card ``FlashAttentionRelposTrain`` ties the three
 kernels of ``csrc/flash_attention_relpos_train.cu`` together: forward with
-the saved logsumexp (K3), then dq and d_used (K4) and dk, dv (K5). Each
-kernel has a plain version here, and on a CPU tensor the whole call is the
-plain forward, differentiated by autograd. The dropout mask is the JAX
-package's counter-based hash (``keep_mask``), a function of (seed, b, h,
-query, key) alone, so every version draws the same mask.
+the saved logsumexp (K3, the shared forward with its training flag), then
+dq and d_used (K4) and dk, dv (K5). Each kernel has a plain version here,
+and on a CPU tensor the whole call is the plain forward, differentiated by
+autograd. The dropout mask is the JAX package's counter-based hash
+(``keep_mask``), a function of (seed, b, h, query, key) alone, so every
+version draws the same mask.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from emg_tpu_torch.ops import build
 NEG_FILL = -1e8
 KEY_TILE = 64  # the kernel's key tile: T must be a multiple of it
 MAX_HEAD_DIM = 128
+FWD_HEAD_DIMS = (64, 96, 128)  # the forward kernels' (K2, K3) head sizes
 
 
 def relative_index(T: int, device) -> torch.Tensor:
@@ -85,13 +89,20 @@ def _check(q, k, v, used, oob, key_pad):
         raise ValueError("flash_attention_relpos inputs must share one device")
 
 
+def _check_fwd_shape(T, Dh):
+    if T % KEY_TILE or Dh not in FWD_HEAD_DIMS:
+        raise ValueError(
+            f"the kernel takes T a multiple of {KEY_TILE} and Dh in {FWD_HEAD_DIMS}, got T={T}, Dh={Dh}"
+        )
+
+
 def flash_attention_relpos(q, k, v, used, oob, key_pad):
     """q, k, v: (B, H, T, Dh) float32 or bfloat16; used: (H, 2T-1, Dh);
     oob: (2T-1,) float32; key_pad: (B, T) bool, True at a padded key.
     Returns (B, H, T, Dh) float32.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (T a multiple of 64, Dh <= 128) or raises; there is no fallback.
+    (T a multiple of 64, Dh 64, 96 or 128) or raises; there is no fallback.
     """
     _check(q, k, v, used, oob, key_pad)
     device = q.device
@@ -100,10 +111,7 @@ def flash_attention_relpos(q, k, v, used, oob, key_pad):
     if device.type != "cuda":
         raise ValueError(f"flash_attention_relpos runs on cuda or cpu, not {device}")
     B, H, T, Dh = q.shape
-    if T % KEY_TILE or Dh > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the kernel takes T a multiple of {KEY_TILE} and Dh <= {MAX_HEAD_DIM}, got T={T}, Dh={Dh}"
-        )
+    _check_fwd_shape(T, Dh)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     used = used.to(q.dtype).contiguous()
     oob = oob.to(torch.float32).contiguous()
@@ -286,14 +294,16 @@ def _bwd_check(q, dout, lse, delta):
 def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed):
     """K3: (o (B, H, T, Dh), lse (B, H, T)), both float32. ``seed`` is a
     one-element int32 tensor on the inputs' device. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    plain version; a CUDA tensor launches the kernel (T a multiple of 64,
+    Dh 64, 96 or 128) or raises."""
     _check_train(q, k, v, used, oob, key_pad, rate, seed)
     if q.device.type == "cpu":
         return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed)
     q, k, v, oob, key_pad, seed = _cuda_ready("flash_train_fwd", q, q, k, v,
                                               oob.to(torch.float32), key_pad, seed)
-    used = used.to(q.dtype).contiguous()
     B, H, T, Dh = q.shape
+    _check_fwd_shape(T, Dh)
+    used = used.to(q.dtype).contiguous()
     o = torch.empty((B, H, T, Dh), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_relpos_train")
@@ -392,8 +402,8 @@ def flash_attention_relpos_train(q, k, v, used, oob, key_pad, dropout_rate: floa
     tensor on the inputs' device. Returns o (B, H, T, Dh) float32.
 
     A CPU tensor takes the plain version under autograd. A CUDA tensor goes
-    through ``FlashAttentionRelposTrain`` (T a multiple of 64, Dh <= 128) or
-    raises; there is no fallback."""
+    through ``FlashAttentionRelposTrain`` (T a multiple of 64, Dh 64, 96 or
+    128) or raises; there is no fallback."""
     rate = float(dropout_rate)
     _check_train(q, k, v, used, oob, key_pad, rate, seed)
     if q.device.type == "cpu":
