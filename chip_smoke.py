@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
      and print the card's name and power limit; per kernel, ptxas's
      registers and spill bytes and whether its SASS holds tensor-core
      instructions (HMMA: mma.sync, HGMMA: wgmma); the forward attention
-     kernels (K2, K3) must;
+     kernels (K2, K3) and the backward dk/dv kernel (K5) must;
   2. kernel 1 (iir_scan) against its plain PyTorch version on the card;
   3. kernel 2 (flash_attention_relpos) against its plain version, with
      scaled_dot_product_attention over a materialized bias timed beside it
@@ -161,7 +161,8 @@ def kernel_resources(record):
     """Per kernel of each library: ptxas's registers and spill bytes (from
     the build's log) and the tensor-core instructions in its SASS
     (cuobjdump -sass): HMMA is mma.sync, HGMMA wgmma. Fails unless every
-    forward attention kernel (flash_fwd_kernel: K2 and K3) has some."""
+    forward attention kernel (flash_fwd_kernel: K2 and K3) and every
+    backward dk/dv kernel (flash_bwd_dkv_kernel: K5) has some."""
     from emg_tpu_torch.ops import build
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -196,9 +197,10 @@ def kernel_resources(record):
             rows.append(row)
             log(f"kernel {json.dumps(row)}")
     record["kernel_resources"] = rows
-    forward = [r for r in rows if "flash_fwd_kernel" in r["kernel"]]
-    if not forward or not all(r.get("HMMA", 0) + r.get("HGMMA", 0) > 0 for r in forward):
-        raise AssertionError(f"a forward attention kernel holds no tensor-core instruction: {forward}")
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        found = [r for r in rows if kernel in r["kernel"]]
+        if not found or not all(r.get("HMMA", 0) + r.get("HGMMA", 0) > 0 for r in found):
+            raise AssertionError(f"a {kernel} holds no tensor-core instruction: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -1008,8 +1010,9 @@ def main():
         ("flash_attention_relpos", "emg_tpu_torch/ops/csrc/flash_attention_relpos.cu",
          "emg_tpu/ops/pallas/flash_attention.py:125"),
         ("flash_train_fwd", train_source, "emg_tpu/ops/pallas/flash_attention.py:468"),
-        ("flash_train_bwd_dq", train_source, "emg_tpu/ops/pallas/flash_attention.py:512"),
-        ("flash_train_bwd_dkv", train_source, "emg_tpu/ops/pallas/flash_attention.py:512"),
+        ("flash_train_bwd_dq", train_source, "emg_tpu/ops/pallas/flash_attention.py:525"),
+        ("flash_train_bwd_dkv", "emg_tpu_torch/ops/csrc/flash_bwd_relpos.cuh",
+         "emg_tpu/ops/pallas/flash_attention.py:567"),
     ):
         row = rows[name]
         kernels.append({

@@ -16,6 +16,8 @@ in the reference's format. A checkpoint is a ``torch.save``d state dict in
 the reference's key names: the port's model.pt, a reference ``.pt`` file,
 or ``utils/convert.py::state_dict_from_flax`` of the JAX package's
 variables. Beam search is not ported yet and stops with an error.
+``--debug`` runs on the CPU whatever ``--device`` says, as the reference's
+``--debug`` does.
 """
 
 from __future__ import annotations
@@ -154,6 +156,9 @@ def main(argv=None):
     if _pop_flag(argv, "recipe") is not None:
         raise NotImplementedError("training recipes are not yet ported")
     cfg = Config.from_args(argv)
+    if cfg.paths.debug:
+        # --debug runs on the CPU, as the reference's does
+        device = "cpu"
     if cfg.paths.evaluate_saved_beam_search:
         raise NotImplementedError("--evaluate_saved_beam_search is not yet ported")
     if cfg.paths.evaluate_saved_greedy_search:

@@ -86,6 +86,12 @@ class EMGModel(nn.Module):
             )
         if cfg.sequence_shard:
             raise NotImplementedError("sequence_shard is not yet ported")
+        if cfg.remat:
+            raise NotImplementedError("remat (rematerialized encoder layers) is not yet ported")
+        if not cfg.use_flash_attention:
+            raise NotImplementedError(
+                "use_flash_attention=false (the unfused attention path) is not yet ported"
+            )
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)

@@ -27,7 +27,10 @@
 //
 // K3 is the forward shared with serving, flash_fwd_relpos.cuh, with its
 // training flag set (saved lse, dropout, division by keep_prob): tensor
-// cores, bf16 mma and float32 as 3xTF32. The header says how it is built.
+// cores, bf16 mma and float32 as 3xTF32. K5 is flash_bwd_relpos.cuh's
+// tensor-core kernel over the backward recompute of p and ds, on the same
+// primitives. The headers say how each is built; this file holds K4 and the
+// C entry points of all three.
 //
 // The keep mask is the TPU kernels' counter-based hash (_keep_mask,
 // flash_attention.py:222-242), bit for bit: a murmur3 finalizer over
@@ -42,23 +45,20 @@
 // ds (and keep*p/keep_prob) before the products that follow, as the TPU
 // kernels' `.astype(vs.dtype)` does.
 //
-// What bounds K4 and K5 on an H100: operations. Per (b, h), K4 does about
-// 12*T*T*Dh flops (q.k, q.used, dO.v, ds.k, ds.used, ds^T.q) and K5 about
-// 10*T*T*Dh (q.k, q.used, dO.v, p^T.dO, ds^T.q), against ~4*T*Dh values
-// read (q, k, v, dO) plus the (2T-1, Dh) window per head: at T >= 128,
-// Dh = 96 the ratio of operations to bytes is far above the card's. Their
-// products are scalar float32 FMAs, a simple design that is right; tensor
-// cores, as K3 has them, are later work.
+// What bounds K4 on an H100: operations. Per (b, h) it does about
+// 12*T*T*Dh flops (q.k, q.used, dO.v, ds.k, ds.used, ds^T.q) against ~4*T*Dh
+// values read (q, k, v, dO) plus the (2T-1, Dh) window per head: at T >= 128,
+// Dh = 96 the ratio of operations to bytes is far above the card's. Its
+// products are scalar float32 FMAs, a simple design that is right; its
+// tensor-core redesign is to call flash_bwd_relpos.cuh's recompute_pd_ds.
 //
-// Design of K4 and K5: the TPU kernels formed q.used over the whole window
-// and rolled rows to meet Mosaic's lane alignment. Here a block stages, per
+// Design of K4: the TPU kernels formed q.used over the whole window and
+// rolled rows to meet Mosaic's lane alignment. Here a block stages, per
 // tile, the band of rows of `used` that the tile touches (rows padded to an
-// odd stride so a warp's diagonal reads hit distinct banks) and forms
-// q.used for exactly the (i, j) it owns.
-//   K4: a block owns kBQ = 32 query rows of one (b, h) and walks key tiles
-//     of kBK = 64; each warp owns 8 rows, a lane keys lane, lane + 32.
-//   K5: a block owns kKB = 32 keys of one (b, h) and walks query tiles of
-//     kQT = 64; each warp owns 8 keys, a lane queries lane, lane + 32.
+// odd stride so a warp's diagonal reads hit distinct banks) and forms q.used
+// for exactly the (i, j) it owns: a block owns kBQ = 32 query rows of one
+// (b, h) and walks key tiles of kBK = 64; each warp owns 8 rows, a lane keys
+// lane, lane + 32.
 // d_used is a sum over b and over query tiles of every head's window. The
 // TPU carried it in VMEM across a sequential grid; CUDA blocks run in no
 // order. Design chosen: float32 atomicAdd into a zeroed (H, 2T-1, Dh)
@@ -69,6 +69,7 @@
 // run, so d_used differs between runs by float32 rounding (relative ~1e-6
 // of its magnitude); dq, dk and dv are deterministic.
 
+#include "flash_bwd_relpos.cuh"
 #include "flash_fwd_relpos.cuh"
 
 namespace {
@@ -82,11 +83,6 @@ constexpr int kBQ = 32;
 constexpr int kBK = 64;
 constexpr int kRowsPerWarp = kBQ / kWarps;  // 8
 constexpr int kBand = kBQ + kBK - 1;
-// K5
-constexpr int kKB = 32;
-constexpr int kQT = 64;
-constexpr int kKeysPerWarp = kKB / kWarps;  // 8
-constexpr int kBand5 = kKB + kQT - 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -288,181 +284,11 @@ flash_train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K5: dk and dv
-// ---------------------------------------------------------------------------
-
-__host__ __device__ inline size_t dkv_smem_floats(int dh) {
-  return 2 * static_cast<size_t>(kKB) * dh                 // K, V
-         + 2 * static_cast<size_t>(kQT) * odd_stride(dh)   // Q, dO
-         + static_cast<size_t>(kBand5) * odd_stride(dh)    // used band
-         + 2 * static_cast<size_t>(kKB) * kQT              // PD, DS
-         + 2 * static_cast<size_t>(kQT);                   // lse, delta
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ used,
-                           const float* __restrict__ oob,
-                           const unsigned char* __restrict__ key_pad,
-                           const int* __restrict__ seed_ptr,
-                           const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv,
-                           int H, int Tn, int Dh, float scale, uint32_t thresh,
-                           float keep_prob) {
-  extern __shared__ float smem[];
-  const int qs = odd_stride(Dh);
-  float* Kb = smem;
-  float* Vb = Kb + kKB * Dh;
-  float* Qs = Vb + kKB * Dh;
-  float* DOs = Qs + kQT * qs;
-  float* Us = DOs + kQT * qs;
-  float* PD = Us + kBand5 * qs;
-  float* DS = PD + kKB * kQT;
-  float* Ls = DS + kKB * kQT;
-  float* Dl = Ls + kQT;
-
-  const int k0 = blockIdx.x * kKB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool dropping = thresh < kKeepAll;
-  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const float kept = 1.0f / keep_prob;
-
-  const size_t bh = (static_cast<size_t>(b) * H + h) * Tn * Dh;
-  const size_t bhr = (static_cast<size_t>(b) * H + h) * Tn;
-  const T* qb = q + bh;
-  const T* kb = k + bh;
-  const T* vb = v + bh;
-  const T* dob = dout + bh;
-  const T* ub = used + static_cast<size_t>(h) * (2 * Tn - 1) * Dh;
-  const unsigned char* kpb = key_pad + static_cast<size_t>(b) * Tn;
-
-  for (int e = tid; e < kKB * Dh; e += kThreads) {
-    Kb[e] = to_f32(kb[static_cast<size_t>(k0) * Dh + e]);
-    Vb[e] = to_f32(vb[static_cast<size_t>(k0) * Dh + e]);
-  }
-  float kp_r[kKeysPerWarp];
-  float dka[kKeysPerWarp][kDt], dva[kKeysPerWarp][kDt];
-#pragma unroll
-  for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-    kp_r[rr] = kpb[k0 + warp * kKeysPerWarp + rr] ? kNegFill : 0.f;
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) dka[rr][t] = dva[rr][t] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < Tn; q0 += kQT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < kQT * Dh; e += kThreads) {
-      const int i = e / Dh, d = e - i * Dh;
-      const size_t g = static_cast<size_t>(q0 + i) * Dh + d;
-      Qs[i * qs + d] = to_f32(qb[g]);
-      DOs[i * qs + d] = to_f32(dob[g]);
-    }
-    // band rows r0 .. r0 + kBand5 - 1: r = j - i + T - 1 over keys
-    // k0 .. k0 + kKB - 1 and queries q0 .. q0 + kQT - 1
-    const int r0 = k0 - q0 - kQT + Tn;
-    for (int e = tid; e < kBand5 * Dh; e += kThreads) {
-      const int r = e / Dh, d = e - r * Dh;
-      Us[r * qs + d] = to_f32(ub[static_cast<size_t>(r0 + r) * Dh + d]);
-    }
-    for (int e = tid; e < kQT; e += kThreads) {
-      Ls[e] = lse[bhr + q0 + e];
-      Dl[e] = delta[bhr + q0 + e];
-    }
-    __syncthreads();
-
-    float sqk[kKeysPerWarp][2], squ[kKeysPerWarp][2], sdv[kKeysPerWarp][2];
-#pragma unroll
-    for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-      sqk[rr][0] = sqk[rr][1] = 0.f;
-      squ[rr][0] = squ[rr][1] = 0.f;
-      sdv[rr][0] = sdv[rr][1] = 0.f;
-    }
-    for (int d = 0; d < Dh; ++d) {
-      const float q_a = Qs[lane * qs + d];
-      const float q_b = Qs[(lane + 32) * qs + d];
-      const float do_a = DOs[lane * qs + d];
-      const float do_b = DOs[(lane + 32) * qs + d];
-#pragma unroll
-      for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-        const int jl = warp * kKeysPerWarp + rr;
-        const float kv = Kb[jl * Dh + d];
-        const float vv = Vb[jl * Dh + d];
-        const int band = jl - lane + kQT - 1;  // query lane; lane+32 is -32
-        sqk[rr][0] = fmaf(q_a, kv, sqk[rr][0]);
-        sqk[rr][1] = fmaf(q_b, kv, sqk[rr][1]);
-        squ[rr][0] = fmaf(q_a, Us[band * qs + d], squ[rr][0]);
-        squ[rr][1] = fmaf(q_b, Us[(band - 32) * qs + d], squ[rr][1]);
-        sdv[rr][0] = fmaf(do_a, vv, sdv[rr][0]);
-        sdv[rr][1] = fmaf(do_b, vv, sdv[rr][1]);
-      }
-    }
-
-    const int ia = q0 + lane, ib = ia + 32;
-#pragma unroll
-    for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-      const int jl = warp * kKeysPerWarp + rr;
-      const int j = k0 + jl;
-      const int ra = j - ia + Tn - 1;
-      const float s_a = (sqk[rr][0] * scale + (squ[rr][0] + oob[ra])) + kp_r[rr];
-      const float s_b = (sqk[rr][1] * scale + (squ[rr][1] + oob[ra - 32])) + kp_r[rr];
-      const float p_a = expf(s_a - Ls[lane]);
-      const float p_b = expf(s_b - Ls[lane + 32]);
-      const float kk_a = keep_scale(dropping, seed, b, h, ia, j, thresh, kept);
-      const float kk_b = keep_scale(dropping, seed, b, h, ib, j, thresh, kept);
-      PD[jl * kQT + lane] = round_like(p_a * kk_a, q);
-      PD[jl * kQT + lane + 32] = round_like(p_b * kk_b, q);
-      DS[jl * kQT + lane] = round_like(p_a * (sdv[rr][0] * kk_a - Dl[lane]), q);
-      DS[jl * kQT + lane + 32] = round_like(p_b * (sdv[rr][1] * kk_b - Dl[lane + 32]), q);
-    }
-    __syncwarp();  // a warp reads back only its own keys' rows of PD, DS
-
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) {
-      const int dd = lane + 32 * t;
-      if (dd < Dh) {
-        for (int i = 0; i < kQT; ++i) {
-          const float qv = Qs[i * qs + dd];
-          const float dov = DOs[i * qs + dd];
-#pragma unroll
-          for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-            const int jl = warp * kKeysPerWarp + rr;
-            dva[rr][t] = fmaf(PD[jl * kQT + i], dov, dva[rr][t]);
-            dka[rr][t] = fmaf(DS[jl * kQT + i], qv, dka[rr][t]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkb = dk + bh;
-  float* dvb = dv + bh;
-#pragma unroll
-  for (int rr = 0; rr < kKeysPerWarp; ++rr) {
-    const int j = k0 + warp * kKeysPerWarp + rr;
-#pragma unroll
-    for (int t = 0; t < kDt; ++t) {
-      const int dd = lane + 32 * t;
-      if (dd < Dh) {
-        dkb[static_cast<size_t>(j) * Dh + dd] = dka[rr][t] * scale;
-        dvb[static_cast<size_t>(j) * Dh + dd] = dva[rr][t];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 bool bad_shape(int B, int H, int Tn, int Dh) {
-  return B <= 0 || H <= 0 || Tn <= 0 || Tn % kBK != 0 || Tn % kQT != 0 ||
+  return B <= 0 || H <= 0 || Tn <= 0 || Tn % kBK != 0 ||
          Dh <= 0 || Dh > kMaxDh;
 }
 
@@ -504,15 +330,8 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* used,
                const T* dout, const float* lse, const float* delta, float* dk,
                float* dv, int B, int H, int Tn, int Dh, int thresh,
                float keep_prob, cudaStream_t stream) {
-  if (bad_shape(B, H, Tn, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = dkv_smem_floats(Dh) * sizeof(float);
-  cudaError_t err = set_smem(flash_train_bwd_dkv_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.0f / sqrtf(static_cast<float>(Dh));
-  flash_train_bwd_dkv_kernel<T><<<dim3(Tn / kKB, H, B), kThreads, bytes, stream>>>(
-      q, k, v, used, oob, key_pad, seed, dout, lse, delta, dk, dv, H, Tn, Dh,
-      scale, static_cast<uint32_t>(thresh), keep_prob);
-  return static_cast<int>(cudaGetLastError());
+  return bwd::launch_dkv<T>(q, k, v, used, oob, key_pad, seed, dout, lse, delta, dk, dv, B, H,
+                            Tn, Dh, static_cast<uint32_t>(thresh), keep_prob, stream);
 }
 
 }  // namespace

@@ -26,7 +26,8 @@ attention with post-softmax dropout, differentiable in q, k, v and the
 window ``used``. On the card ``FlashAttentionRelposTrain`` ties the three
 kernels of ``csrc/flash_attention_relpos_train.cu`` together: forward with
 the saved logsumexp (K3, the shared forward with its training flag), then
-dq and d_used (K4) and dk, dv (K5). Each kernel has a plain version here,
+dq and d_used (K4) and dk, dv (K5, on the tensor cores, from
+``csrc/flash_bwd_relpos.cuh``). Each kernel has a plain version here,
 and on a CPU tensor the whole call is the plain forward, differentiated by
 autograd. The dropout mask is the JAX package's counter-based hash
 (``keep_mask``), a function of (seed, b, h, query, key) alone, so every
@@ -350,11 +351,14 @@ def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: floa
 
 
 def flash_train_bwd_dkv(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
-    """K5: (dk, dv), each (B, H, T, Dh) float32; arguments as K4's."""
+    """K5: (dk, dv), each (B, H, T, Dh) float32; arguments as K4's. On the
+    card it is the tensor-core kernel of ``csrc/flash_bwd_relpos.cuh`` (T a
+    multiple of 64, Dh 64, 96 or 128, as the forward)."""
     _check_train(q, k, v, used, oob, key_pad, rate, seed)
     _bwd_check(q, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    _check_fwd_shape(q.shape[2], q.shape[3])
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dkv", q, k, v, used, oob, key_pad, dout, lse, delta,

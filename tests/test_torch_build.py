@@ -6,8 +6,13 @@ nvcc is needed to name a library or to read the sources.
   rebuilds both.
 - Every C entry point that ``build.SIGNATURES`` declares (and each
   library's ``*_error_string``) is defined with ``extern "C"`` in its source
-  or a header it includes, directly or through a macro that expands to
-  one, such as the training library's ``FWD_ENTRY``/``BWD_ENTRY``.
+  or a header it includes (directly or through another header), directly
+  or through a macro that expands to one, such as the training library's
+  ``FWD_ENTRY``/``BWD_ENTRY``.
+- The attention backward's dk/dv kernel (K5) and the recompute of p and ds
+  it shares with the dq kernel's redesign live in one header, on the
+  tensor cores, which the training library includes; the scalar dk/dv
+  kernel is gone.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import pytest
 from emg_tpu_torch.ops import build
 
 FORWARD_HEADER = "flash_fwd_relpos.cuh"
+BACKWARD_HEADER = "flash_bwd_relpos.cuh"
 
 
 @pytest.fixture
@@ -47,11 +53,24 @@ def test_library_name_follows_sources_and_headers(tmp_csrc, edit):
 
 def _with_headers(name: str) -> str:
     """The source of library ``name`` followed by the local headers it
-    includes."""
+    includes, and the headers they include, each once."""
     text = (build.CSRC / f"{name}.cu").read_text()
-    for header in re.findall(r'#include "([^"]+)"', text):
-        text += (build.CSRC / header).read_text()
+    seen = set()
+    pending = re.findall(r'#include "([^"]+)"', text)
+    while pending:
+        header = pending.pop()
+        if header not in seen:
+            seen.add(header)
+            body = (build.CSRC / header).read_text()
+            text += body
+            pending += re.findall(r'#include "([^"]+)"', body)
     return text
+
+
+def test_with_headers_follows_nested_includes(tmp_csrc):
+    (tmp_csrc / "shared.cuh").write_text('#include "inner.cuh"\n// shared\n')
+    (tmp_csrc / "inner.cuh").write_text('#include "shared.cuh"\nextern "C" int inner_f32() { return 0; }\n')
+    assert "inner_f32" in _entry_points(_with_headers("k"))
 
 
 def _entry_points(text: str) -> set:
@@ -79,3 +98,20 @@ def test_forward_kernel_is_shared():
         assert f'#include "{FORWARD_HEADER}"' in source
         assert "flash_fwd_kernel" not in source
         assert FORWARD_HEADER not in build.SOURCES
+
+
+def test_dkv_kernel_is_the_backward_headers():
+    """K5 is defined once, in the backward header, which reuses the forward
+    header's primitives and holds the shared recompute; the training
+    library includes it, and the scalar dk/dv kernel is gone."""
+    header = (build.CSRC / BACKWARD_HEADER).read_text()
+    assert "flash_bwd_dkv_kernel(" in header and "recompute_pd_ds(" in header
+    assert f'#include "{FORWARD_HEADER}"' in header
+    for primitive in ("fwd::gemm_qbt", "fwd::mma_bf16", "fwd::mma_3xtf32", "fwd::ldsm_x4_trans"):
+        assert primitive in header
+    assert "mma.sync" in _with_headers("flash_attention_relpos_train")
+    source = (build.CSRC / "flash_attention_relpos_train.cu").read_text()
+    assert f'#include "{BACKWARD_HEADER}"' in source
+    assert "flash_bwd_dkv_kernel" not in source and "flash_train_bwd_dkv_kernel" not in source
+    assert "flash_train_bwd_dq_kernel(" in source  # K4 stays where it was
+    assert BACKWARD_HEADER not in build.SOURCES
