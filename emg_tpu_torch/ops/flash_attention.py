@@ -26,8 +26,8 @@ attention with post-softmax dropout, differentiable in q, k, v and the
 window ``used``. On the card ``FlashAttentionRelposTrain`` ties the three
 kernels of ``csrc/flash_attention_relpos_train.cu`` together: forward with
 the saved logsumexp (K3, the shared forward with its training flag), then
-dq and d_used (K4) and dk, dv (K5, on the tensor cores, from
-``csrc/flash_bwd_relpos.cuh``). Each kernel has a plain version here,
+dq and d_used (K4) and dk, dv (K5), both on the tensor cores, from
+``csrc/flash_bwd_relpos.cuh``. Each kernel has a plain version here,
 and on a CPU tensor the whole call is the plain forward, differentiated by
 autograd. The dropout mask is the JAX package's counter-based hash
 (``keep_mask``), a function of (seed, b, h, query, key) alone, so every
@@ -42,8 +42,7 @@ from emg_tpu_torch.ops import build
 
 NEG_FILL = -1e8
 KEY_TILE = 64  # the kernel's key tile: T must be a multiple of it
-MAX_HEAD_DIM = 128
-FWD_HEAD_DIMS = (64, 96, 128)  # the forward kernels' (K2, K3) head sizes
+FWD_HEAD_DIMS = (64, 96, 128)  # the attention kernels' (K2-K5) head sizes
 
 
 def relative_index(T: int, device) -> torch.Tensor:
@@ -140,7 +139,6 @@ flash_attention_relpos.launches = 0
 # ---------------------------------------------------------------------------
 
 KEEP_BITS = 30  # the keep test compares the hash's low 30 bits
-TRAIN_TILE = 64  # the training kernels take T a multiple of this
 _M32 = 0xFFFFFFFF
 
 
@@ -271,15 +269,10 @@ def _check_train(q, k, v, used, oob, key_pad, rate, seed):
 
 
 def _cuda_ready(name, q, *tensors):
-    """Raise unless the inputs can go to a training kernel; return them
-    contiguous."""
+    """Raise unless the inputs lie on the card (each training wrapper checks
+    their shape with ``_check_fwd_shape``); return them contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    T, Dh = q.shape[2], q.shape[3]
-    if T % TRAIN_TILE or Dh > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the kernel takes T a multiple of {TRAIN_TILE} and Dh <= {MAX_HEAD_DIM}, got T={T}, Dh={Dh}"
-        )
     return [t.contiguous() for t in tensors]
 
 
@@ -335,13 +328,16 @@ def _launch_bwd(name, q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed,
 def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
     """K4: (dq (B, H, T, Dh), d_used (H, 2T-1, Dh)), both float32. ``dout``
     is the output's gradient at the input dtype, ``lse`` K3's saved
-    logsumexp, ``delta`` = rowsum(dout * o) (B, H, T) float32. d_used sums
-    over blocks with atomics: its float32 rounding changes from run to run."""
+    logsumexp, ``delta`` = rowsum(dout * o) (B, H, T) float32. On the card
+    it is the tensor-core kernel of ``csrc/flash_bwd_relpos.cuh`` (T a
+    multiple of 64, Dh 64, 96 or 128, as the forward). d_used sums over
+    blocks with atomics: its float32 rounding changes from run to run."""
     _check_train(q, k, v, used, oob, key_pad, rate, seed)
     _bwd_check(q, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
     B, H, T, Dh = q.shape
+    _check_fwd_shape(T, Dh)
     dq = torch.empty((B, H, T, Dh), dtype=torch.float32, device=q.device)
     dused = torch.zeros((H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dq", q, k, v, used, oob, key_pad, dout, lse, delta,

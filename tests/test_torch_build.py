@@ -9,10 +9,9 @@ nvcc is needed to name a library or to read the sources.
   or a header it includes (directly or through another header), directly
   or through a macro that expands to one, such as the training library's
   ``FWD_ENTRY``/``BWD_ENTRY``.
-- The attention backward's dk/dv kernel (K5) and the recompute of p and ds
-  it shares with the dq kernel's redesign live in one header, on the
-  tensor cores, which the training library includes; the scalar dk/dv
-  kernel is gone.
+- The attention backward's kernels, dq/d_used (K4) and dk/dv (K5), and
+  the recompute of p and ds they share live in one header, on the tensor
+  cores, which the training library includes; the scalar kernels are gone.
 """
 
 from __future__ import annotations
@@ -103,7 +102,7 @@ def test_forward_kernel_is_shared():
 def test_dkv_kernel_is_the_backward_headers():
     """K5 is defined once, in the backward header, which reuses the forward
     header's primitives and holds the shared recompute; the training
-    library includes it, and the scalar dk/dv kernel is gone."""
+    library includes it, and the scalar dk/dv and dq kernels are gone."""
     header = (build.CSRC / BACKWARD_HEADER).read_text()
     assert "flash_bwd_dkv_kernel(" in header and "recompute_pd_ds(" in header
     assert f'#include "{FORWARD_HEADER}"' in header
@@ -113,5 +112,22 @@ def test_dkv_kernel_is_the_backward_headers():
     source = (build.CSRC / "flash_attention_relpos_train.cu").read_text()
     assert f'#include "{BACKWARD_HEADER}"' in source
     assert "flash_bwd_dkv_kernel" not in source and "flash_train_bwd_dkv_kernel" not in source
-    assert "flash_train_bwd_dq_kernel(" in source  # K4 stays where it was
+    assert "flash_train_bwd_dq_kernel" not in source  # K4 left the source
+    assert "__global__" not in source  # only entry points remain
     assert BACKWARD_HEADER not in build.SOURCES
+
+
+def test_dq_kernel_is_the_backward_headers():
+    """K4 is defined once, in the backward header: it calls the shared
+    recompute and runs its products on the forward header's mma
+    primitives; no other source defines it."""
+    header = (build.CSRC / BACKWARD_HEADER).read_text()
+    assert header.count("flash_bwd_dq_kernel(") == 1
+    body = header[header.index("flash_bwd_dq_kernel("):header.index("int launch_dq(")]
+    assert "recompute_pd_ds<T, kDh, kN>(" in body
+    for primitive in ("fwd::mma_bf16", "fwd::mma_3xtf32", "fwd::ldsm_x4_trans"):
+        assert primitive in body
+    assert "atomicAdd" in body  # d_used across blocks
+    for path in build.CSRC.iterdir():
+        if path.name != BACKWARD_HEADER:
+            assert "flash_bwd_dq_kernel" not in path.read_text()
