@@ -8,7 +8,11 @@ Phases, in order; any failure exits non-zero:
      registers and spill bytes and whether its SASS holds tensor-core
      instructions (HMMA: mma.sync, HGMMA: wgmma); the forward attention
      kernels (K2, K3) and the backward dq and dk/dv kernels (K4, K5) must;
-  2. kernel 1 (iir_scan) against its plain PyTorch version on the card;
+  2. kernel 1 (iir_scan) against its plain PyTorch version on the card, at
+     the DSP's rows (16 and 24) over the 4096-131072 buckets and at 384
+     rows (24 utterances folded onto rows): error, two calls bitwise equal,
+     times beside the bytes bound and a copy of the same bytes, the
+     cluster layout and how many such clusters the card holds at once;
   3. kernel 2 (flash_attention_relpos) against its plain version, with
      scaled_dot_product_attention over a materialized bias timed beside it
      as a yardstick (the port never calls it);
@@ -21,7 +25,8 @@ Phases, in order; any failure exits non-zero:
      random weights from a seeded torch.Generator) through the port's CLI
      entry point on a synthetic corpus, with the kernels' launch counts
      taken over that run alone, and the per-utterance time of DSP, encode
-     and decode;
+     and decode; a torch.profiler trace of one warm preprocess_emg at the
+     16384-sample bucket (device busy ms, kernel 1's share, kernel count);
   6. the same path in float32 with the kernels and with their plain
      versions: DSP outputs and encoder memory agree, greedy strings match;
   7. training at full width (the flagship at its defaults: float32,
@@ -158,12 +163,12 @@ def demangle(names):
 
 
 def kernel_resources(record):
-    """Per kernel of each library: ptxas's registers and spill bytes (from
-    the build's log) and the tensor-core instructions in its SASS
-    (cuobjdump -sass): HMMA is mma.sync, HGMMA wgmma. Fails unless every
-    forward attention kernel (flash_fwd_kernel: K2 and K3) and every
-    backward kernel (flash_bwd_dq_kernel: K4, flash_bwd_dkv_kernel: K5) has
-    some."""
+    """Per kernel of each library: ptxas's registers, spill bytes and static
+    shared memory (from the build's log) and the tensor-core instructions in
+    its SASS (cuobjdump -sass): HMMA is mma.sync, HGMMA wgmma. Fails if the
+    iir_scan kernel (K1) spills, and unless every forward attention kernel
+    (flash_fwd_kernel: K2 and K3) and every backward kernel
+    (flash_bwd_dq_kernel: K4, flash_bwd_dkv_kernel: K5) has some."""
     from emg_tpu_torch.ops import build
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -180,6 +185,9 @@ def kernel_resources(record):
             m = re.search(r"Used (\d+) registers", line)
             if m and current is not None:
                 current["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and current is not None:
+                current["static_smem_bytes"] = int(m.group(1))
         sass = subprocess.run([cuobjdump, "-sass", str(build._library_path(lib))],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         current = None
@@ -198,6 +206,9 @@ def kernel_resources(record):
             rows.append(row)
             log(f"kernel {json.dumps(row)}")
     record["kernel_resources"] = rows
+    scan = [r for r in rows if "iir_scan_kernel" in r["kernel"]]
+    if not scan or any(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0) for r in scan):
+        raise AssertionError(f"the iir_scan kernel is missing or spills: {scan}")
     for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         found = [r for r in rows if kernel in r["kernel"]]
         if not found or not all(r.get("HMMA", 0) + r.get("HGMMA", 0) > 0 for r in found):
@@ -208,37 +219,73 @@ def kernel_resources(record):
 # phase 2: kernel 1
 # ---------------------------------------------------------------------------
 
-def check_iir_scan(record):
+# (R, T): the DSP's notch (16 rows) and high-pass (24) over the DSP
+# buckets (T = bucket + 2*9 + 1 and + 2*12 + 1), and 24 utterances x 8
+# channels x 2 states folded onto rows
+K1_SHAPES = [(R, T) for R in (16, 24)
+             for T in (4096 + 25, 16384 + 19, 65536 + 19, 131072 + 19)] + [(384, 16384 + 19)]
+
+
+def k1_rows(shapes):
+    """Kernel 1 against its plain version at each (R, T), both directions:
+    its error, whether two calls are bitwise equal, its device and wrapper
+    times, the plain version's, a copy of the same 16*R*T bytes (u_r and
+    u_i into two buffers: no PyTorch call computes the recurrence) and the
+    bound. Uses only the wrapper and the plain version, so it also times an
+    earlier tree's kernel."""
     from emg_tpu_torch.ops.iir_scan import iir_scan, iir_scan_plain
 
     gen = torch.Generator().manual_seed(1)
     rows = []
-    for R in (16, 24):
-        for T in (4096 + 25, 16384 + 19):
-            radius = 0.8 + 0.199 * torch.rand(R, generator=gen)
-            angle = 0.6 * torch.rand(R, generator=gen) - 0.3
-            args = [radius * torch.cos(angle), radius * torch.sin(angle),
-                    torch.randn(R, T, generator=gen), torch.randn(R, T, generator=gen),
-                    torch.randn(R, generator=gen), torch.randn(R, generator=gen)]
-            args = [a.to(DEVICE) for a in args]
-            for reverse in (False, True):
-                got = iir_scan(*args, reverse=reverse)
-                ref = iir_scan_plain(*args, reverse=reverse)
-                torch.cuda.synchronize()
-                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                scale = max(float(r.abs().max()) for r in ref)
-                ms = time_ms(lambda: iir_scan(*args, reverse=reverse))
-                wrapper_ms = call_ms(lambda: iir_scan(*args, reverse=reverse))
-                plain_ms = time_ms(lambda: iir_scan_plain(*args, reverse=reverse))
-                b_ms, b_by = bound(16.0 * R * T, 8.0 * R * T, F32_CUDA_CORE_FLOPS)
-                row = dict(R=R, T=T, reverse=reverse, max_abs_err=err, rel_err=err / scale,
-                           ms=ms, call_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
-                rows.append(row)
-                log(f"K1 iir_scan {json.dumps(row)}")
-                if not err <= K1_TOL * scale:
-                    raise AssertionError(f"iir_scan disagrees with its plain version: {row}")
+    for R, T in shapes:
+        radius = 0.8 + 0.199 * torch.rand(R, generator=gen)
+        angle = 0.6 * torch.rand(R, generator=gen) - 0.3
+        args = [radius * torch.cos(angle), radius * torch.sin(angle),
+                torch.randn(R, T, generator=gen), torch.randn(R, T, generator=gen),
+                torch.randn(R, generator=gen), torch.randn(R, generator=gen)]
+        args = [a.to(DEVICE) for a in args]
+        copies = [torch.empty_like(args[2]), torch.empty_like(args[3])]
+
+        def copy():
+            copies[0].copy_(args[2])
+            copies[1].copy_(args[3])
+        for reverse in (False, True):
+            got = iir_scan(*args, reverse=reverse)
+            again = iir_scan(*args, reverse=reverse)
+            ref = iir_scan_plain(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            scale = max(float(r.abs().max()) for r in ref)
+            repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+            b_ms, b_by = bound(16.0 * R * T, 8.0 * R * T, F32_CUDA_CORE_FLOPS)
+            row = dict(R=R, T=T, reverse=reverse, max_abs_err=err, rel_err=err / scale,
+                       bitwise_repeatable=repeatable,
+                       ms=time_ms(lambda: iir_scan(*args, reverse=reverse)),
+                       call_ms=call_ms(lambda: iir_scan(*args, reverse=reverse)),
+                       plain_ms=time_ms(lambda: iir_scan_plain(*args, reverse=reverse)),
+                       copy_ms=time_ms(copy), bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log(f"K1 iir_scan {json.dumps(row)}")
+    return rows
+
+
+def check_iir_scan(record):
+    from emg_tpu_torch.ops.iir_scan import layout, max_active_clusters
+
+    layouts = []
+    for R, T in K1_SHAPES:
+        lay = layout(R, T)
+        lay = dict(R=R, T=T, **lay._asdict(), max_active_clusters=max_active_clusters(R, lay))
+        layouts.append(lay)
+        log(f"K1 layout {json.dumps(lay)}")
+    rows = k1_rows(K1_SHAPES)
+    record["iir_scan_layouts"] = layouts
     record["iir_scan"] = rows
+    for row in rows:
+        if not row["rel_err"] <= K1_TOL:
+            raise AssertionError(f"iir_scan disagrees with its plain version: {row}")
+        if not row["bitwise_repeatable"]:
+            raise AssertionError(f"two iir_scan calls differ: {row}")
     # the JSON line reports the notch filters' shape at the 16384 bucket
     # (R = 8 channels x 2 states, T = 16384 + 2*9 + 1), forward
     return next(r for r in rows if r["R"] == 16 and r["T"] == 16384 + 19 and not r["reverse"])
@@ -561,6 +608,43 @@ def stage_times(cfg, model, testset):
     return {k: float(np.mean(v)) for k, v in totals.items()}, buckets
 
 
+def profile_dsp(testset, bucket: int = 16384) -> dict:
+    """One warm preprocess_emg of the first test utterance at ``bucket``:
+    its synchronized host wall (median of three) and, from a torch.profiler
+    trace of one more, the device's busy ms, kernel 1's ms and share of it,
+    and the number of kernels it launched."""
+    from emg_tpu_torch.dsp.pipeline import preprocess_emg
+
+    i = next(i for i in range(len(testset)) if utterance_input(testset, i)[0].shape[0] == bucket)
+    buf, n, n_before, n_after = utterance_input(testset, i)
+    x = torch.as_tensor(buf, device=DEVICE)
+
+    def run():
+        with torch.inference_mode():
+            preprocess_emg(x, n, n_before, n_after)
+        torch.cuda.synchronize()
+    run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof, profiled_wall = profiled(run)
+    by_name, span, count = device_work(prof, "preprocess_emg")
+    busy = sum(by_name.values())
+    scan = sum(ms for name, ms in by_name.items() if "iir_scan" in name)
+    result = dict(utterance=i, bucket=bucket, wall_ms=float(np.median(walls)), walls_ms=walls,
+                  profiled_wall_ms=profiled_wall, device_busy_ms=busy, device_span_ms=span,
+                  device_kernels=count, iir_scan_ms=scan, iir_scan_share_of_busy=scan / busy,
+                  device_idle_share_of_wall=1.0 - busy / float(np.median(walls)),
+                  device_idle_share_of_span=1.0 - busy / span,
+                  longest_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    log(f"preprocess_emg profile {json.dumps(result)}")
+    if scan == 0.0:
+        raise AssertionError("the trace of preprocess_emg holds no iir_scan kernel")
+    return result
+
+
 def serve(argv, ckpt, record):
     from emg_tpu_torch import cli
     from emg_tpu_torch.config import Config
@@ -585,7 +669,8 @@ def serve(argv, ckpt, record):
     times, buckets = stage_times(cfg, model, testset)
     result = dict(per=per, accuracy=acc, utterances=len(testset), cli_wall_s=wall,
                   launches=launches, ms_per_utterance=times,
-                  buckets=[{"dsp_samples": d, "frames": f} for d, f in buckets])
+                  buckets=[{"dsp_samples": d, "frames": f} for d, f in buckets],
+                  dsp_profile=profile_dsp(testset))
     record["serving"] = result
     log(f"serving {json.dumps(result)}")
     if not all(n > 0 for n in launches.values()):
@@ -823,6 +908,34 @@ def train_through_cli(argv, root, record):
     return launches, shapes
 
 
+def profiled(run):
+    """A torch.profiler trace of one call of run(), and its host wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    return prof, profiled_wall
+
+
+def device_work(prof, what: str):
+    """From a trace: device ms by name (kernels, copies and fills), the span
+    from the first device event's start to the last one's end, and the
+    number of kernels (copies and fills aside). Fails if there were none."""
+    from torch.autograd import DeviceType
+
+    by_name, first, last, count = {}, float("inf"), 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            first, last = min(first, e.time_range.start), max(last, e.time_range.end)
+            count += not e.name.startswith(("Memcpy", "Memset"))
+    if not by_name:
+        raise AssertionError(f"the profiler saw no device work in {what}")
+    return by_name, (last - first) / 1e3, count
+
+
 def profile_step(run) -> dict:
     """One warm train step: its wall ms without the profiler (median of
     three synchronized runs) and, from a torch.profiler trace of one more,
@@ -831,9 +944,6 @@ def profile_step(run) -> dict:
     the training attention kernels, and the five longest kernels. The idle
     share is read against the unprofiled wall (the profiler's host tracing
     slows the host) and against the device span."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     run()
     walls = []
     for _ in range(3):
@@ -841,19 +951,9 @@ def profile_step(run) -> dict:
         run()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = float(np.median(walls))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        profiled_wall = (time.perf_counter() - t0) * 1e3
-    by_name, first, last = {}, float("inf"), 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            first, last = min(first, e.time_range.start), max(last, e.time_range.end)
-    if not by_name:
-        raise AssertionError("the profiler saw no device work in a train step")
+    prof, profiled_wall = profiled(run)
+    by_name, span, _ = device_work(prof, "a train step")
     busy = sum(by_name.values())
-    span = (last - first) / 1e3
     attention = {name: ms for name, ms in by_name.items() if "flash_" in name}
     result = dict(wall_ms=wall, walls_ms=walls, profiled_wall_ms=profiled_wall,
                   device_busy_ms=busy, device_span_ms=span,

@@ -61,7 +61,9 @@ SIGNATURES = {
         "flash_train_bwd_dkv_bf16": _TRAIN_BWD,
     },
     "iir_scan": {
-        "iir_scan_f32": [_P] * 8 + [_I, _I, _I, _P],
+        # pointers; R, T, the layout (S, L, n, shared memory bytes), reverse; stream
+        "iir_scan_f32": [_P] * 8 + [_I] * 7 + [_P],
+        "iir_scan_max_active_clusters": [_I, _I, _I, _P],
     },
     "flash_attention_relpos": {
         "flash_attention_relpos_f32": [_P] * 7 + [_I] * 4 + [_P],

@@ -42,7 +42,9 @@ def test_import_pulls_in_no_jax():
     assert len(port_modules()) >= 20
 
 
-@pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py"], ids=["package", "chip_smoke"])
+@pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py", ROOT / "chip_k4_warps.py",
+                                  ROOT / "chip_k1_layouts.py"],
+                         ids=["package", "chip_smoke", "chip_k4_warps", "chip_k1_layouts"])
 def test_sources_import_no_jax(path):
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
