@@ -40,7 +40,18 @@ Phases, in order; any failure exits non-zero:
   8. one float32 train step (the run's largest microbatch) with the kernels
      and with their plain versions, from the same weights, batch and
      generator seeds (dropout 0.2): losses and every parameter gradient
-     agree; its unprofiled wall time and a torch.profiler trace of it.
+     agree; its unprofiled wall time and a torch.profiler trace of it;
+  9. beam serving at full width: an order-3 ARPA trained by the port's
+     lm_train on the corpus's sentences; the beam evaluation through the
+     CLI at its defaults (bfloat16, W = 100, the device beam, 8 utterances
+     a launch) with K1's and K2's launches over that run alone, a finite
+     WER and lexicon words only; per test utterance, warm, the encode and
+     search ms, steps, ms per step and host reads per step (CUDA's sync
+     debug mode counts them: at most one a step); one warm step under
+     torch.profiler; one search over a seeded 5,000-word lexicon with
+     three-word homophone groups (K = 3, H = 400) and the LM's share of a
+     step; the search in float32 on two utterances with K1 and K2 and with
+     their plain versions: the words agree.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -552,6 +563,7 @@ def make_corpus(root: str):
         "--silent_data_directories", paths["silent_data_directories"],
         "--voiced_data_directories", paths["voiced_data_directories"],
         "--testset_file", paths["testset_file"], "--dict", paths["dict"],
+        "--phonesSet", paths["phonesSet"], "--vocabulary", paths["vocabulary"],
         "--normalizers_file", os.path.join(root, "normalizers.pkl"),
         "--output_directory", os.path.join(root, "out"),
     ]
@@ -759,6 +771,373 @@ def whole_path_kernels_vs_plain(argv, ckpt, record):
         raise AssertionError(f"encoder memory with kernel 2 disagrees: {worst}")
     if any(d["margin"] >= MARGIN_TOL for d in differing):
         raise AssertionError(f"greedy strings differ at a clear margin: {differing}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: beam serving
+# ---------------------------------------------------------------------------
+
+def train_arpa_file(sentences, path: str, order: int = 3) -> str:
+    from emg_tpu_torch.decode.lm_train import train_arpa, write_arpa
+
+    write_arpa(train_arpa(sentences, order=order), path)
+    return path
+
+
+def beam_cli(argv, ckpt, arpa, out_dir, record):
+    """The beam evaluation through the CLI at its defaults (bfloat16, W = 100,
+    the device beam, batch_utterances 8), K1's and K2's launches counted
+    over the run alone. Returns the launch counts."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.decode.prefix_tree import init_tree
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
+    from emg_tpu_torch.ops.iir_scan import iir_scan
+    from emg_tpu_torch.text.phonemes import TextTransform
+
+    full = argv + ["--device", DEVICE, "--evaluate_saved_beam_search", ckpt, "--lang_model", arpa,
+                   "--output_directory", out_dir]
+    iir_scan.launches = 0
+    flash_attention_relpos.launches = 0
+    t0 = time.perf_counter()
+    final = cli.main(full)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"iir_scan": iir_scan.launches,
+                "flash_attention_relpos": flash_attention_relpos.launches}
+    logging.getLogger().handlers.clear()
+
+    cfg = Config.from_args(argv)
+    dct = init_tree(cfg.paths.phonesSet, cfg.paths.vocabulary, cfg.paths.dict).compile_tables().dictionary
+    tt = TextTransform()
+    vocabulary = {tt.clean_text(dct.lookup_word_by_index(i).name) for i in range(dct.word_count())}
+    with open(os.path.join(out_dir, "log_beam_search.txt")) as f:
+        lines = [line for line in f if line.startswith("Prediction:")]
+    predicted = [line[len("Prediction:"):].split(" ---> ")[0].split() for line in lines]
+    result = dict(wer=final, utterances=len(lines), cli_wall_s=wall, launches=launches,
+                  decode=dict(BeamWidth=cfg.decode.BeamWidth, compute_dtype=cfg.decode.compute_dtype,
+                              batch_utterances=cfg.decode.batch_utterances,
+                              beam_scan=cfg.decode.beam_scan),
+                  predictions=[" ".join(w) for w in predicted])
+    record["beam_cli"] = result
+    log(f"beam serving through the CLI {json.dumps(result)}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the beam path was never launched: {launches}")
+    if not 0.0 <= final < float("inf"):
+        raise AssertionError(f"WER is not a finite rate: {final}")
+    if not lines or any(w not in vocabulary for words in predicted for w in words):
+        raise AssertionError(f"a prediction holds a word outside the lexicon: {predicted}")
+    return launches
+
+
+def beam_setup(argv, arpa, extra=(), lexicon=None):
+    """The config, tree and device LM of the beam evaluation; the tree from
+    ``lexicon`` (phone set, vocabulary and dictionary files) where given,
+    else from the corpus's description files."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.decode.device_lm import build_device_lm
+    from emg_tpu_torch.decode.ngram import ArpaLanguageModel
+    from emg_tpu_torch.decode.prefix_tree import init_tree
+
+    cfg = Config.from_args(argv + ["--lang_model", arpa, *extra])
+    files = lexicon or (cfg.paths.phonesSet, cfg.paths.vocabulary, cfg.paths.dict)
+    tree = init_tree(*files).compile_tables()
+    words = [tree.dictionary.lookup_word_by_index(i).name for i in range(tree.dictionary.word_count())]
+    dlm = build_device_lm(ArpaLanguageModel(arpa), words, device=DEVICE)
+    return cfg, tree, dlm, set(words)
+
+
+def serving_model(cfg, ckpt):
+    """The CLI's serving model, with its weights cast once (as the CLI
+    does) so that the searchers share one copy."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.utils.serving import cast_params_for_serving
+
+    model = cli.load_model_for_eval(cfg, ckpt, DEVICE)
+    return cast_params_for_serving(model) if model.dtype == torch.bfloat16 else model
+
+
+def searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len):
+    from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher
+
+    step_cap = 16 * ((target_len + cfg.decode.extra_steps + 15) // 16)
+    return DeviceBeamSearcher(model, tree, dlm, cfg.decode, max_frames, max_steps=step_cap)
+
+
+def timed_search(searcher, pb, target_len):
+    """One search of one utterance, its encode and its step loop each
+    synchronized and timed; the loop runs under CUDA's sync debug mode,
+    which warns at every operation that waits for the card. Returns
+    (encode ms, loop ms, steps, host reads, state)."""
+    import warnings
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kvs, mask = searcher._stack_ctx([searcher._make_ctx(pb)])
+        max_len = torch.tensor([target_len + searcher.cfg.extra_steps], device=DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st, steps = searcher.run(kvs, mask, max_len)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        t2 = time.perf_counter()
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, steps, reads, (st, kvs, mask, max_len)
+
+
+def profile_beam_step(searcher, ctx, t: int = 4) -> dict:
+    """One warm beam step at position t under torch.profiler: the card's busy
+    ms, the kernels it launched, its unprofiled and profiled wall, the five
+    longest device entries, and the LM's part (``cond_logp`` at this step's
+    inputs, traced on its own)."""
+    _, kvs, mask, max_len = ctx
+    with torch.inference_mode():
+        st = searcher._init_state(1)
+        for i in range(t):
+            st = searcher._step(st, i, kvs, mask, max_len)
+        seen = []
+        real = searcher.lm.cond_logp
+
+        def record_inputs(c, w):
+            seen.append((c, w))
+            return real(c, w)
+        with mock.patch.object(searcher.lm, "cond_logp", record_inputs):
+            searcher._step(st, t, kvs, mask, max_len)
+
+        def step():
+            searcher._step(st, t, kvs, mask, max_len)
+            torch.cuda.synchronize()
+
+        def lm_call():
+            real(*seen[0])
+            torch.cuda.synchronize()
+        step()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof, profiled_wall = profiled(step)
+        lm_call()
+        lm_prof, _ = profiled(lm_call)
+    by_name, span, count = device_work(prof, "a beam step")
+    lm_by_name, _, lm_count = device_work(lm_prof, "the beam's LM call")
+    busy, lm_busy = sum(by_name.values()), sum(lm_by_name.values())
+    wall = float(np.median(walls))
+    result = dict(t=t, wall_ms=wall, walls_ms=walls, profiled_wall_ms=profiled_wall,
+                  device_busy_ms=busy, device_span_ms=span, device_kernels=count,
+                  device_idle_share_of_wall=1.0 - busy / wall,
+                  lm_device_ms=lm_busy, lm_kernels=lm_count, lm_share_of_kernels=lm_count / count,
+                  lm_share_of_busy=lm_busy / busy,
+                  longest=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    log(f"beam step profile {json.dumps(result)}")
+    return result
+
+
+def beam_timings(argv, ckpt, arpa, record):
+    """Per-utterance encode and search over the test split at the CLI's
+    defaults, warm (the second of two passes); the host reads per step;
+    one step under the profiler."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.dataset import EMGDataset
+
+    cfg, tree, dlm, words = beam_setup(argv, arpa)
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    model = serving_model(cfg, ckpt)
+    rows, ctx, searcher = [], None, None
+    for i in range(len(testset)):
+        pb, max_frames, raw = cli.prepare_single(cfg, testset, i)
+        target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
+        searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
+        for _ in range(2):  # the second pass is warm
+            enc_ms, loop_ms, steps, reads, ctx = timed_search(searcher, pb, target_len)
+        _, score, found = searcher._format(*[a[0] for a in searcher._best(ctx[0])])
+        rows.append(dict(utterance=i, frames=max_frames, max_len=target_len + cfg.decode.extra_steps,
+                         encode_ms=enc_ms, search_ms=loop_ms, steps=steps,
+                         ms_per_step=loop_ms / steps, host_reads=reads,
+                         host_reads_per_step=reads / steps, score=score, words=found))
+        log(f"beam utterance {json.dumps(rows[-1])}")
+    result = dict(
+        utterances=rows,
+        mean=dict(encode_ms=float(np.mean([r["encode_ms"] for r in rows])),
+                  search_ms=float(np.mean([r["search_ms"] for r in rows])),
+                  steps=float(np.mean([r["steps"] for r in rows])),
+                  ms_per_step=float(np.mean([r["ms_per_step"] for r in rows])),
+                  host_reads_per_step=float(np.mean([r["host_reads_per_step"] for r in rows]))),
+        H=searcher.H, K=searcher.K, W=searcher.W,
+        step_profile=profile_beam_step(searcher, ctx))
+    record["beam_timings"] = result
+    log(f"beam per-utterance means {json.dumps(result['mean'])}")
+    if any(r["host_reads"] > r["steps"] for r in rows):
+        raise AssertionError(f"a beam step read more than its one flag from the card: {rows}")
+    if any(w not in words for r in rows for w in r["words"]):
+        raise AssertionError("a search emitted a word outside the lexicon")
+
+
+def synthetic_lexicon(root: str, seed: int = 0, n_words: int = 5000):
+    """A seeded lexicon of ``n_words`` words over the 40 phones, pronounced
+    with 2-8 phones, a tenth of them in homophone groups of three (so the
+    prefix tree's nodes end at most K = 3 words), and 3000 seeded sentences
+    over it with a Zipf-like word distribution. Returns (its phone set,
+    vocabulary and dictionary files, sentences)."""
+    from emg_tpu_torch.data.fixtures import PHONES_LINE
+
+    rng = np.random.default_rng(seed)
+    phones = PHONES_LINE.split()
+    prons, seen = [], set()
+    while len(prons) < n_words:
+        pron = " ".join(rng.choice(phones, size=int(rng.integers(2, 9))))
+        if pron in seen:
+            continue
+        seen.add(pron)
+        # a group of three with probability 1/28: a tenth of the words
+        prons.extend([pron] * (3 if rng.random() < 1 / 28 else 1))
+    prons = prons[:n_words]
+    names = [f"W{i:04d}" for i in range(n_words)]
+    desc = os.path.join(root, "lexicon_scale")
+    os.makedirs(desc, exist_ok=True)
+    with open(os.path.join(desc, "phonesSet"), "w") as f:
+        f.write(PHONES_LINE + "\n")
+    with open(os.path.join(desc, "lexicon.txt"), "w") as f:
+        f.writelines(f"{w}\t{p}\n" for w, p in zip(names, prons))
+    with open(os.path.join(desc, "vocabulary"), "w") as f:
+        f.write(" ".join(names) + "\n")
+    weights = 1.0 / np.arange(1, n_words + 1)
+    weights /= weights.sum()
+    sentences = [" ".join(rng.choice(names, size=int(rng.integers(3, 13)), p=weights))
+                 for _ in range(3000)]
+    files = tuple(os.path.join(desc, f) for f in ("phonesSet", "vocabulary", "lexicon.txt"))
+    return files, sentences
+
+
+def beam_lexicon_scale(argv, ckpt, root, record):
+    """One search at W = 100 over a ~5,000-word lexicon with K = 3 (H = 400)
+    and an order-3 ARPA over it, on the first test utterance."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.dataset import EMGDataset
+
+    lexicon, sentences = synthetic_lexicon(root)
+    t0 = time.perf_counter()
+    arpa = train_arpa_file(sentences, os.path.join(root, "lexicon_scale.arpa"))
+    cfg, tree, dlm, words = beam_setup(argv, arpa, lexicon=lexicon)
+    setup_s = time.perf_counter() - t0
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    model = serving_model(cfg, ckpt)
+    pb, max_frames, raw = cli.prepare_single(cfg, testset, 0)
+    target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
+    searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
+    for _ in range(2):
+        enc_ms, loop_ms, steps, reads, ctx = timed_search(searcher, pb, target_len)
+    _, score, found = searcher._format(*[a[0] for a in searcher._best(ctx[0])])
+    result = dict(words=len(words), tree_nodes=int(tree.child_table.shape[0]), K=searcher.K,
+                  H=searcher.H, W=searcher.W,
+                  ngrams=[int((t.keys[:, 0] >= 0).sum()) for t in dlm.tables],
+                  table_slots=[t.size for t in dlm.tables],
+                  setup_s=setup_s, encode_ms=enc_ms, search_ms=loop_ms, steps=steps,
+                  ms_per_step=loop_ms / steps, host_reads=reads, score=score,
+                  emitted=len(found), step_profile=profile_beam_step(searcher, ctx))
+    record["beam_lexicon_scale"] = result
+    log(f"beam at lexicon scale {json.dumps(result)}")
+    if searcher.K != 3 or reads > steps:
+        raise AssertionError(f"the lexicon-scale search is not as set up: {result}")
+    if any(w not in words for w in found):
+        raise AssertionError("the lexicon-scale search emitted a word outside the lexicon")
+
+
+def beam_divergence(searcher, ctx_a, ctx_b, max_len):
+    """Step two searches of one utterance (contexts ``(cross K/V, mask)``)
+    side by side; at the first step where their beams differ, the margin
+    between the two candidates that swapped: the scores at the first rank
+    whose hypothesis differs, or the two best finished scores where only
+    the finished buffers differ. None if the searches never differ."""
+    W = searcher.W
+    with torch.inference_mode():
+        a, b = searcher._init_state(1), searcher._init_state(1)
+        for t in range(searcher.S - 1):
+            a = searcher._step(a, t, *ctx_a, max_len)
+            b = searcher._step(b, t, *ctx_b, max_len)
+            rows = (a["hist"][0, :W] != b["hist"][0, :W]).any(dim=1) & a["alive"][0, :W]
+            if bool(rows.any()):
+                i = int(rows.int().argmax())
+                return dict(step=t, rank=i, margin=float((a["cum"][0, i] - b["cum"][0, i]).abs()))
+            if not torch.equal(a["fin_hist"][0, 0], b["fin_hist"][0, 0]):
+                return dict(step=t, rank="finished", margin=float(
+                    (a["fin_scores"][0, 0] - b["fin_scores"][0, 0]).abs()))
+    return None
+
+
+def beam_kernels_vs_plain(argv, ckpt, arpa, record, n: int = 2):
+    """The same search in float32 on the first n test utterances, with the
+    DSP and the encoder through K1 and K2 and through their plain versions
+    (phase 6's switch): the words must be equal, or the two candidates that
+    swapped at the first step where the beams differ within MARGIN_TOL (a
+    near tie)."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos_plain
+    from emg_tpu_torch.ops.iir_scan import iir_scan_plain
+
+    cfg, tree, dlm, _ = beam_setup(argv, arpa, ["--decode.compute_dtype", "float32"])
+    model = serving_model(cfg, ckpt)
+
+    def contexts():
+        """Per utterance: its searcher, search context and max_len."""
+        testset = EMGDataset(cfg, test=True, device=DEVICE)
+        out = []
+        for i in range(n):
+            pb, max_frames, raw = cli.prepare_single(cfg, testset, i)
+            target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
+            searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
+            with torch.inference_mode():
+                ctx = searcher._stack_ctx([searcher._make_ctx(pb)])
+            max_len = torch.tensor([target_len + cfg.decode.extra_steps], device=DEVICE)
+            out.append((searcher, ctx, max_len))
+        return out
+
+    def search(searcher, ctx, max_len):
+        st, _ = searcher.run(*ctx, max_len)
+        return searcher._format(*[a[0] for a in searcher._best(st)])
+
+    kernels = contexts()
+    with mock.patch("emg_tpu_torch.dsp.filters.iir_scan", iir_scan_plain), \
+            mock.patch("emg_tpu_torch.models.attention.flash_attention_relpos",
+                       flash_attention_relpos_plain):
+        plain = contexts()
+    rows = []
+    for i, ((searcher, ck, max_len), (_, cp, _)) in enumerate(zip(kernels, plain)):
+        (hk, sk, wk), (hp, sp, wp) = search(searcher, ck, max_len), search(searcher, cp, max_len)
+        row = dict(utterance=i, equal=wk == wp and list(hk) == list(hp), words=wk,
+                   plain_words=wp, score=sk, plain_score=sp)
+        if not row["equal"]:
+            row["first_divergence"] = beam_divergence(searcher, ck, cp, max_len)
+            log(f"beam kernels vs plain: utterance {i} differs: {row['first_divergence']}")
+        rows.append(row)
+    record["beam_f32_kernels_vs_plain"] = rows
+    log(f"beam kernels vs plain (float32) {json.dumps(rows)}")
+    for r in rows:
+        if not r["equal"] and not (r["first_divergence"] is not None
+                                   and r["first_divergence"]["margin"] < MARGIN_TOL):
+            raise AssertionError(f"the beam's words differ at a clear margin: {rows}")
+
+
+def beam_serving(argv, ckpt, root, record):
+    from emg_tpu_torch.data.fixtures import FIXTURE_SENTENCES
+
+    t0 = time.perf_counter()
+    arpa = train_arpa_file(FIXTURE_SENTENCES, os.path.join(root, "lm.arpa"))
+    launches = beam_cli(argv, ckpt, arpa, os.path.join(root, "beam_out"), record)
+    beam_timings(argv, ckpt, arpa, record)
+    beam_lexicon_scale(argv, ckpt, root, record)
+    beam_kernels_vs_plain(argv, ckpt, arpa, record)
+    record["beam_phase_s"] = time.perf_counter() - t0
+    log(f"phase 9 took {record['beam_phase_s']:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1100,8 +1479,12 @@ def main():
         k345 = check_launched_shapes(shapes, record)
         log("phase 8: one train step, kernels vs plain, float32")
         train_step_kernels_vs_plain(argv, record)
+        log("phase 9: beam serving at full width")
+        beam_launches = beam_serving(argv, ckpt, root, record)
 
-    # K1 and K2 count over the serving run, K3-K5 over the training run
+    # K1 and K2 count over the greedy serving run (phase 9's JSON holds
+    # their counts over the beam run), K3-K5 over the training run
+    log(f"K1 and K2 launches over the beam run: {json.dumps(beam_launches)}")
     launches.update({name: train_launches[name] for name in k345})
     rows = {"iir_scan": dict(k1, library_ms=None), "flash_attention_relpos": k2, **k345}
     train_source = "emg_tpu_torch/ops/csrc/flash_attention_relpos_train.cu"

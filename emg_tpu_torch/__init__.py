@@ -7,9 +7,12 @@ and nothing of JAX or of ``emg_tpu``. The TPU kernels on its path are
 CUDA kernels written for ``sm_90a`` under ``ops/csrc/``, each with a plain
 PyTorch version beside it that the CPU runs.
 
-This slice covers the serving path: device DSP -> ResNet CNN -> relative-
-positional transformer encoder -> KV-cached greedy decoding -> PER
-(``python -m emg_tpu_torch.cli --evaluate_saved_greedy_search CKPT``).
+It covers serving (device DSP -> ResNet CNN -> relative-positional
+transformer encoder -> KV-cached greedy decoding -> PER, ``python -m
+emg_tpu_torch.cli --evaluate_saved_greedy_search CKPT``), beam evaluation
+(the same encoder, then the lexicon-constrained beam search with the
+n-gram LM -> WER, ``--evaluate_saved_beam_search CKPT --lang_model LM``)
+and training (``python -m emg_tpu_torch.cli --output_directory OUT``).
 """
 
 import torch

@@ -1,4 +1,4 @@
-"""CLI entry point of the port: training and saved-model greedy evaluation.
+"""CLI entry point of the port: training and saved-model greedy and beam evaluation.
 
 Counterpart of ``emg_tpu/cli.py`` (reference recognition_model.py:385-420):
 
@@ -6,16 +6,21 @@ Counterpart of ``emg_tpu/cli.py`` (reference recognition_model.py:385-420):
       [--start_training_from MODEL.pt] [--device cuda|cpu] [--section.key value ...]
   python -m emg_tpu_torch.cli --evaluate_saved_greedy_search MODEL.pt \\
       [--device cuda|cpu] [--section.key value ...]
+  python -m emg_tpu_torch.cli --evaluate_saved_beam_search MODEL.pt \\
+      --lang_model LM.arpa [--device cuda|cpu] [--section.key value ...]
 
 With no evaluate flag it trains (``train.trainer.Trainer``), logging to
 <output_directory>/log.txt and writing ``latest`` (the full train state,
 which ``--resume`` continues from) and ``model.pt`` (the best weights).
 ``--evaluate_saved_greedy_search`` decodes the test split greedily at batch
 1 and reports PER + token accuracy in <output_directory>/log_greedy_search.txt,
-in the reference's format. A checkpoint is a ``torch.save``d state dict in
-the reference's key names: the port's model.pt, a reference ``.pt`` file,
-or ``utils/convert.py::state_dict_from_flax`` of the JAX package's
-variables. Beam search is not ported yet and stops with an error.
+in the reference's format. ``--evaluate_saved_beam_search`` decodes it with
+the lexicon-constrained beam and the n-gram LM (``--lang_model``; the
+lexicon from ``--phonesSet``, ``--vocabulary`` and ``--dict``) and reports
+the WER of the cleaned text in <output_directory>/log_beam_search.txt. A
+checkpoint is a ``torch.save``d state dict in the reference's key names:
+the port's model.pt, a reference ``.pt`` file, or
+``utils/convert.py::state_dict_from_flax`` of the JAX package's variables.
 ``--debug`` runs on the CPU whatever ``--device`` says, as the reference's
 ``--debug`` does.
 """
@@ -28,6 +33,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from emg_tpu_torch.config import Config
 
@@ -111,6 +117,122 @@ def evaluate_saved_greedy_search(cfg: Config, device="cuda"):
     return per, acc
 
 
+def evaluate_saved_beam_search(cfg: Config, device="cuda"):
+    """Beam-search WER of the checkpoint at ``paths.evaluate_saved_beam_search``
+    over the test split (``emg_tpu/cli.py::evaluate_saved_beam_search``):
+    the device beam (``decode/device_beam.py``) by default, the host beam
+    (``decode/beam.py``) for ``Constrained=false``, ``device_beam=false``
+    or a KenLM binary LM. Returns the final WER."""
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.beam import BeamSearcher
+    from emg_tpu_torch.decode.kenlm_binary import is_kenlm_binary
+    from emg_tpu_torch.decode.ngram import load_language_model
+    from emg_tpu_torch.decode.prefix_tree import init_tree
+    from emg_tpu_torch.text.metrics import wer
+    from emg_tpu_torch.text.phonemes import TextTransform
+
+    dc = cfg.decode
+    use_device = dc.device_beam and dc.Constrained
+    if use_device and dc.continuous_lanes > 0:
+        raise NotImplementedError("--decode.continuous_lanes > 0 (decode/continuous.py) "
+                                  "is not yet ported")
+    testset = EMGDataset(cfg, test=True, device=device)
+    model = load_model_for_eval(cfg, cfg.paths.evaluate_saved_beam_search, device)
+    tree = init_tree(cfg.paths.phonesSet, cfg.paths.vocabulary, cfg.paths.dict)
+    compiled = tree.compile_tables()
+    lm = load_language_model(cfg.paths.lang_model)
+    tt = TextTransform()
+
+    if use_device and is_kenlm_binary(cfg.paths.lang_model):
+        # KenLM *binary* LMs expose only hashed n-gram keys, so the device
+        # LM tables (which need enumerable n-grams) cannot be compiled from
+        # one; score through the host searcher instead, the reference's own
+        # regime (PrefixTree.py:288-290 queries kenlm per hypothesis)
+        log.warning(
+            "lang_model %s is a KenLM binary: device-beam LM tables need an "
+            "enumerable ARPA file, falling back to the host beam searcher "
+            "(pass the .arpa to re-enable the device beam)",
+            cfg.paths.lang_model,
+        )
+        use_device = False
+    if use_device:
+        from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher
+        from emg_tpu_torch.decode.device_lm import build_device_lm
+        from emg_tpu_torch.decode.ngram import ArpaLanguageModel
+        from emg_tpu_torch.utils.serving import cast_params_for_serving
+
+        py_lm = (lm if isinstance(lm, ArpaLanguageModel)
+                 else ArpaLanguageModel(cfg.paths.lang_model))
+        lex_words = [
+            compiled.dictionary.lookup_word_by_index(i).name
+            for i in range(compiled.dictionary.word_count())
+        ]
+        dlm = build_device_lm(py_lm, lex_words, device=device)
+        if model.dtype == torch.bfloat16:
+            # one cast copy shared by every geometry's searcher
+            model = cast_params_for_serving(model)
+
+    # pass 1: prepare every utterance
+    prepared = []  # (pb, max_frames, target_len, target_text)
+    for i in range(len(testset)):
+        pb, max_frames, raw = prepare_single(cfg, testset, i)
+        target = raw["phonemes_int"][0][1:]
+        target_len = int((target != 40).sum())
+        prepared.append((pb, max_frames, target_len, tt.clean_text(raw["text"][0])))
+
+    # pass 2: decode; the device beam takes one geometry group's
+    # utterances batch_utterances at a time
+    words_by_idx = {}
+    if use_device:
+        groups = {}
+        for i, (pb, max_frames, target_len, _) in enumerate(prepared):
+            step_cap = 16 * ((target_len + dc.extra_steps + 15) // 16)
+            key = (max_frames, step_cap, pb.packed_raw.shape[0], pb.targets.shape[1])
+            groups.setdefault(key, []).append(i)
+        CH = max(dc.batch_utterances, 1)
+        searchers = {}
+        for (max_frames, step_cap, _, _), idxs in groups.items():
+            if (max_frames, step_cap) not in searchers:
+                searchers[max_frames, step_cap] = DeviceBeamSearcher(
+                    model, compiled, dlm, dc, max_frames, max_steps=step_cap)
+            searcher = searchers[max_frames, step_cap]
+            for c0 in range(0, len(idxs), CH):
+                chunk = idxs[c0 : c0 + CH]
+                if len(chunk) == 1:
+                    pb, _, target_len, _ = prepared[chunk[0]]
+                    words_by_idx[chunk[0]] = searcher.search(pb, target_len)[2]
+                    continue
+                # padded to the launch size, as the JAX package's launches
+                padded = chunk + [chunk[-1]] * (CH - len(chunk))
+                outs = searcher.search_many(
+                    [prepared[i][0] for i in padded],
+                    [prepared[i][2] for i in padded],
+                )
+                for i, out in zip(chunk, outs[: len(chunk)]):
+                    words_by_idx[i] = out[2]
+    else:
+        host_searchers = {}
+        for i, (pb, max_frames, target_len, _) in enumerate(prepared):
+            if max_frames not in host_searchers:
+                host_searchers[max_frames] = BeamSearcher(model, compiled, lm, dc, max_frames)
+            words_by_idx[i] = host_searchers[max_frames].search(pb, target_len)[2]
+
+    # pass 3: score + log in dataset order (reference log format)
+    references, predictions = [], []
+    for i, (_, _, _, target_text) in enumerate(prepared):
+        pred_text = tt.clean_text(" ".join(words_by_idx[i]))
+        if len(target_text) != 0:
+            references.append(target_text)
+            predictions.append(pred_text)
+            log.info(
+                "Prediction:%s ---> Reference:%s  (WER: %s)",
+                pred_text, target_text, wer(target_text, pred_text),
+            )
+    final = wer(references, predictions)
+    log.info("Final WER: %s", final)
+    return final
+
+
 def train(cfg: Config, device="cuda"):
     """Train on the split the config names; ``--resume`` continues from
     <output_directory>/latest where it exists. Returns the Trainer."""
@@ -147,7 +269,7 @@ def _pop_flag(argv, name: str, default=None):
 
 
 def main(argv=None):
-    """Dispatch on the evaluate flags: greedy evaluation, or training."""
+    """Dispatch on the evaluate flags: beam or greedy evaluation, or training."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--help" in argv or "-h" in argv:
         print(__doc__)
@@ -160,7 +282,8 @@ def main(argv=None):
         # --debug runs on the CPU, as the reference's does
         device = "cpu"
     if cfg.paths.evaluate_saved_beam_search:
-        raise NotImplementedError("--evaluate_saved_beam_search is not yet ported")
+        _setup_logging(cfg.paths.output_directory, "log_beam_search.txt")
+        return evaluate_saved_beam_search(cfg, device=device)
     if cfg.paths.evaluate_saved_greedy_search:
         _setup_logging(cfg.paths.output_directory, "log_greedy_search.txt")
         return evaluate_saved_greedy_search(cfg, device=device)

@@ -1,0 +1,322 @@
+"""Lexicon-constrained beam search on the card.
+
+Counterpart of ``emg_tpu/decode/device_beam.py``. The whole search runs on
+the device: decoder steps, prefix-tree masking/stepping, word-boundary LM
+expansion with the device hash-table LM (``decode/device_lm.py``), length
+penalties, and the finished-hypothesis buffer. The JAX package compiles it
+into one ``lax.while_loop`` (and vmaps that over utterances); here a
+Python loop launches each step's tensor ops, and the step body is written
+once over a leading utterance axis U: ``search`` is U = 1 and
+``search_many`` is U = ``len(batches)``, and both give the same result for
+an utterance.
+
+Semantics carried over from the JAX package:
+
+- top-W of (H x 41) and the finished buffer's top-F keep ``lax.top_k``'s
+  tie order (the lower flat index first) by a stable descending sort, so
+  dead rows (all -inf) and -inf buffer slots order as there;
+- a lane runs in lock-step with the others; from its own ``max_len`` on,
+  its rows are gated dead (``alive &= t < max_len``, the JAX "static"
+  variant's gate), so its finished buffer no longer changes, as a
+  vmapped while-loop freezes a finished lane's carry;
+- expansion rows share their parent's history (parent = row mod W), so
+  only the first W rows of each lane run through ``decode_step``;
+- the previous step's row selection reorders the K/V caches at the start
+  of the next step, by ``index_select`` on the row axis (exact; the JAX
+  package's one-hot matmul is exact too).
+
+``beam_scan="early_exit"`` stops the loop once no lane can make progress,
+reading one flag from the device per step (as ``decode/greedy.py`` does);
+``"static"`` runs all S-1 steps with no read. Nothing else in a step
+synchronizes with the host. Score arithmetic is float32 (the host
+``BeamSearcher`` accumulates float64), which can reorder near-tied
+hypotheses.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from emg_tpu_torch.config import DecodeConfig
+from emg_tpu_torch.data.batching import PackedBatch
+from emg_tpu_torch.decode.device_lm import DeviceLM
+from emg_tpu_torch.decode.greedy import encode_batch
+from emg_tpu_torch.decode.prefix_tree import CompiledTree
+from emg_tpu_torch.text.phonemes import PAD_ID, START_ID
+
+NEG = float("-inf")
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """Top k along the last axis, ties by the lower index (``lax.top_k``'s
+    order; ``torch.topk`` promises none on the card)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class DeviceBeamSearcher:
+    def __init__(self, model, tree: CompiledTree, device_lm: DeviceLM,
+                 cfg: DecodeConfig, max_frames: int, max_steps: int = 64,
+                 max_words: int = None, finished_size: int = 64):
+        if not cfg.Constrained:
+            raise ValueError("the device beam requires lexicon constraints")
+        if cfg.quantize_int8:
+            raise NotImplementedError("--decode.quantize_int8 is not yet ported")
+        if cfg.beam_scan not in ("early_exit", "static"):
+            raise ValueError(f"unknown beam_scan {cfg.beam_scan!r}")
+        if model.dtype == torch.bfloat16:
+            # cast the per-use float32 -> bfloat16 weights once, outside the
+            # step loop (numerics unchanged; see utils/serving.py)
+            from emg_tpu_torch.utils.serving import cast_params_for_serving
+
+            model = cast_params_for_serving(model)
+        self.model = model
+        self.device = model.device
+        if device_lm.device != self.device:
+            raise ValueError(f"the LM's tables are on {device_lm.device}, the model on {self.device}")
+        self.cfg = cfg
+        self.max_frames = max_frames
+        self.S = max_steps + 1
+        # every word consumes at least one phone step, so max_steps words
+        # can never be exceeded: a smaller cap would silently freeze
+        # hypotheses at word-end nodes where </S> is invalid
+        self.MW = max_words if max_words is not None else max_steps
+        self.F = finished_size
+
+        # dense tree tables on the device; word slots per node fixed to K
+        self.K = max((len(w) for w in tree.node_words), default=1)
+        n_nodes = tree.child_table.shape[0]
+        node_words = np.full((n_nodes, self.K), -1, np.int64)
+        for i, ws in enumerate(tree.node_words):
+            node_words[i, : len(ws)] = ws
+
+        def on_device(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+        self.child_table = on_device(tree.child_table, torch.int64)
+        self.mask_table = on_device(tree.mask_table, torch.float32)
+        self.node_words = on_device(node_words, torch.int64)
+        self.root = tree.root
+        self.phone_count = tree.phone_count  # 40; end token id == 40
+        self.lm = device_lm
+        self.tree = tree
+        self.W = cfg.BeamWidth
+        self.H = self.W * (1 + self.K)
+        # expansion rows carry the same token history as their parent
+        # (row i's parent is i mod W)
+        self.parent = torch.arange(self.H, device=self.device) % self.W
+        self.positions = torch.arange(self.S, device=self.device)
+        self.word_slots = torch.arange(self.MW, device=self.device)
+
+    # ------------------------------------------------------------------
+    def _make_ctx(self, batch: PackedBatch):
+        """One utterance's search context: its encoder memory projected into
+        each decoder layer's cross K/V (K as float32, which is how the step
+        reads it: the exact float32 values of the compute-dtype K), and the
+        source pad mask."""
+        model = self.model
+        memory, _, src_mask = encode_batch(model, batch, self.max_frames)
+        kvs = model.project_cross_kvs(memory[:1])
+        return [(k.float(), v) for k, v in kvs], src_mask[:1]
+
+    def _stack_ctx(self, ctxs):
+        kvs = [(torch.cat([c[0][i][0] for c in ctxs]), torch.cat([c[0][i][1] for c in ctxs]))
+               for i in range(len(ctxs[0][0]))]
+        return kvs, torch.cat([c[1] for c in ctxs])
+
+    def _init_state(self, U: int) -> dict:
+        """Fresh search state for U utterances."""
+        S, H, F, MW, W = self.S, self.H, self.F, self.MW, self.W
+        dev = self.device
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        hist = full((U, H, S), PAD_ID, torch.int64)
+        hist[:, :, 0] = START_ID
+        alive = full((U, H), False, torch.bool)
+        alive[:, 0] = True
+        k_all, v_all = self.model.init_decode_cache(U * W, S)
+        return dict(
+            hist=hist, cum=full((U, H), 0.0, torch.float32),
+            node=full((U, H), self.root, torch.int64), alive=alive,
+            ctx=self.lm.initial_ctx((U, H)), runlm=full((U, H), 0.0, torch.float32),
+            chars=full((U, H), 0, torch.int64), wc=full((U, H), 0, torch.int64),
+            words=full((U, H, MW), -1, torch.int64),
+            fin_scores=full((U, F), NEG, torch.float32),
+            fin_hist=full((U, F, S), PAD_ID, torch.int64),
+            fin_words=full((U, F, MW), -1, torch.int64), fin_wc=full((U, F), 0, torch.int64),
+            k_all=k_all, v_all=v_all,
+            # the previous step's cache row selection, applied at the next
+            psel=torch.arange(U * W, device=dev),
+        )
+
+    def _step(self, st: dict, t: int, cross_kvs, src_mask, max_len: torch.Tensor) -> dict:
+        """One beam step at position t for all U lanes; returns the new state."""
+        model, cfg, lm = self.model, self.cfg, self.lm
+        S, W, K, F, MW = self.S, self.W, self.K, self.F, self.MW
+        end_tok = self.phone_count
+        wt = cfg.LMWeight
+        U = st["cum"].shape[0]
+        lanes = torch.arange(U, device=self.device)[:, None]
+
+        def take(x, idx):  # per-lane row gather: x (U, R, ...), idx (U, N)
+            return x[lanes, idx]
+
+        # a lane past its max_len is inert from here on
+        alive = st["alive"] & (t < max_len)[:, None]
+        hist, cum, node = st["hist"], st["cum"], st["node"]
+
+        # apply the previous step's beam reorder to the K/V caches
+        k_all = st["k_all"].index_select(1, st["psel"])
+        v_all = st["v_all"].index_select(1, st["psel"])
+        tokens = hist[:, :W].reshape(U * W, S)
+        logits = model.decode_step(tokens[:, t], t, (k_all, v_all), cross_kvs, tokens, src_mask,
+                                   pe_period=W)
+        step_lp_w = torch.log_softmax(logits[:, :-2], dim=-1).reshape(U, W, -1)  # (U, W, 41)
+        step_lp = step_lp_w[:, self.parent]  # (U, H, 41)
+        n_cls = step_lp.shape[-1]
+        full = cum[..., None] + step_lp + self.mask_table[node]
+        full = torch.where(alive[..., None], full, NEG)
+
+        vals, flat_idx = top_k_stable(full.reshape(U, -1), W)
+        hsel = flat_idx // n_cls
+        tok = flat_idx % n_cls
+        valid = torch.isfinite(vals)
+
+        new_cum = take(cum, hsel) + step_lp[lanes, hsel, tok]
+        new_hist = take(hist, hsel)
+        new_hist = torch.where(self.positions == t + 1, tok[..., None], new_hist)
+        node_sel = take(node, hsel)
+        new_node = torch.where(
+            tok == end_tok, node_sel,
+            self.child_table[node_sel, tok.clamp(max=self.phone_count - 1)],
+        )
+        new_ctx = take(st["ctx"], hsel)
+        new_runlm = take(st["runlm"], hsel)
+        new_chars = take(st["chars"], hsel)
+        new_wc = take(st["wc"], hsel)
+        new_words = take(st["words"], hsel)
+
+        # one batched LM call scores the eos continuation AND the K
+        # word-boundary expansions together ((U, 1+K, W))
+        wid = self.node_words[new_node].transpose(1, 2)  # (U, K, W) lexicon ids, -1 pad
+        wid_s = wid.clamp(min=0)
+        lm_w = lm.lex2lm[wid_s]  # (U, K, W)
+        ctx_b = new_ctx[:, None].expand(U, K, W, new_ctx.shape[-1])
+        ctx_all = torch.cat([new_ctx[:, None], ctx_b], dim=1)  # (U, 1+K, W, CW)
+        w_all = torch.cat([torch.full_like(lm_w[:, :1], lm.eos_id), lm_w], dim=1)
+        cond_all = lm.cond_logp(ctx_all, w_all)  # (U, 1+K, W)
+        eos_cond = cond_all[:, 0]
+        cond_w = cond_all[:, 1:]  # (U, K, W)
+
+        # finished hypotheses: score = mean(per-step probs) where the last
+        # step also carries the eos LM + final length penalty
+        ended = valid & (tok == end_tok)
+        fin_add = (new_runlm + eos_cond
+                   + (new_chars.float() + 1.0) ** cfg.FinalLengthPenalty) * wt
+        steps = torch.full_like(new_cum, float(t + 1))
+        fin_score = torch.where(ended, (new_cum + fin_add) / steps, NEG)
+        # merge into the finished buffer (top-F by score)
+        fin_scores, top_idx = top_k_stable(torch.cat([st["fin_scores"], fin_score], dim=1), F)
+        fin_hist = take(torch.cat([st["fin_hist"], new_hist], dim=1), top_idx)
+        fin_words = take(torch.cat([st["fin_words"], new_words], dim=1), top_idx)
+        fin_wc = take(torch.cat([st["fin_wc"], new_wc], dim=1), top_idx)
+
+        active = valid & ~ended
+
+        # word-boundary expansions: duplicate each active hypo once per word
+        # ending at its node, moved back to the root with the running LM +
+        # length-penalty addition; row layout [base, k=0, k=1, ...]
+        has = active[:, None] & (wid >= 0) & (new_wc[:, None] < MW)
+        runlm_k = new_runlm[:, None] + cond_w
+        chars_k = new_chars[:, None] + lm.word_chars[wid_s] + (new_wc[:, None] > 0).long()
+        add = (runlm_k + (chars_k.float() + 1.0) ** cfg.RunningLengthPenalty) * wt
+        w_upd = torch.where(
+            self.word_slots == new_wc[:, None, :, None], wid_s[..., None], new_words[:, None],
+        )  # (U, K, W, MW)
+
+        def flat2(base, exp):  # stack [base; k-major expansions]
+            return torch.cat([base, exp.reshape((U, K * W) + exp.shape[3:])], dim=1)
+
+        return dict(
+            hist=new_hist.repeat(1, 1 + K, 1),
+            cum=flat2(new_cum, new_cum[:, None] + add),
+            node=torch.cat([new_node, torch.full_like(wid.reshape(U, K * W), self.root)], dim=1),
+            alive=flat2(active, has),
+            ctx=flat2(new_ctx, lm.shift_ctx(ctx_b, lm_w)),
+            runlm=flat2(new_runlm, runlm_k),
+            chars=flat2(new_chars, chars_k),
+            wc=flat2(new_wc, (new_wc[:, None] + 1).expand(U, K, W)),
+            words=flat2(new_words, w_upd),
+            fin_scores=fin_scores, fin_hist=fin_hist, fin_words=fin_words, fin_wc=fin_wc,
+            k_all=k_all, v_all=v_all,
+            # the selected hypothesis hsel's prefix K/V live in cache row
+            # hsel % W of its lane (expansion rows shared their parent's)
+            psel=((hsel % W) + lanes * W).reshape(U * W),
+        )
+
+    @torch.inference_mode()
+    def run(self, cross_kvs, src_mask, max_len: torch.Tensor):
+        """Run the step loop over U utterances (``max_len``: (U,) int64 on
+        the device) to completion. Returns (final state, steps run)."""
+        U = src_mask.shape[0]
+        st = self._init_state(U)
+        t = 0
+        while t < self.S - 1:
+            if self.cfg.beam_scan == "early_exit" and t > 0:
+                # the one host read of a step: can any lane still progress?
+                if not bool((st["alive"] & (t < max_len)[:, None]).any()):
+                    break
+            st = self._step(st, t, cross_kvs, src_mask, max_len)
+            t += 1
+        return st, t
+
+    def _best(self, st: dict):
+        """The winning finished hypothesis of each lane, on the host."""
+        best = st["fin_scores"].argmax(dim=1)  # the first of equal maxima
+        lanes = torch.arange(best.shape[0], device=best.device)
+        return [st[k][lanes, best].cpu().numpy()
+                for k in ("fin_scores", "fin_hist", "fin_words", "fin_wc")]
+
+    def search_from_raw(self, raw: np.ndarray, target_len_tokens: int):
+        raise NotImplementedError("DeviceBeamSearcher.search_from_raw is not yet ported")
+
+    # ------------------------------------------------------------------
+    def search_many(self, batches: List[PackedBatch], target_lens: List[int]):
+        """Decode several single-utterance batches in lock-step as one
+        search over a leading utterance axis. Returns a list of (history,
+        score, words) like ``search``."""
+        with torch.inference_mode():
+            # a launch padded with repeats of one batch encodes it once
+            ctxs = {}
+            for b in batches:
+                if id(b) not in ctxs:
+                    ctxs[id(b)] = self._make_ctx(b)
+            ctx_kv, mask = self._stack_ctx([ctxs[id(b)] for b in batches])
+            max_len = torch.as_tensor([int(t) + self.cfg.extra_steps for t in target_lens],
+                                      dtype=torch.int64, device=self.device)
+            st, _ = self.run(ctx_kv, mask, max_len)
+            scores, hists, words, wcs = self._best(st)
+        return [self._format(scores[u], hists[u], words[u], wcs[u]) for u in range(len(batches))]
+
+    def _format(self, score, hist, words, wc):
+        """(score, winning history, words, word count) -> search() output."""
+        if not np.isfinite(score):
+            return np.array([START_ID, self.phone_count]), -np.inf, []
+        ends = np.where(hist == self.phone_count)[0]
+        hist = hist[: ends[0] + 1] if len(ends) else hist
+        names = [
+            self.tree.dictionary.lookup_word_by_index(int(w)).name
+            for w in words[: int(wc)]
+        ]
+        return hist, float(score), names
+
+    def search(self, batch: PackedBatch, target_len_tokens: int
+               ) -> Tuple[np.ndarray, float, List[str]]:
+        """Decode one utterance; returns (history, score, word names), the
+        contract of BeamSearcher.search."""
+        return self.search_many([batch], [target_len_tokens])[0]

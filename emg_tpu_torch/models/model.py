@@ -171,10 +171,10 @@ class EMGModel(nn.Module):
 
     # -- decoder path ------------------------------------------------------
     def _embed_targets(self, y: torch.Tensor) -> torch.Tensor:
-        # torch padding_idx semantics: the PAD row is pinned to zero
-        table = self.embedding_tgt.weight
-        table = table.index_fill(0, torch.tensor([PAD_ID], device=table.device), 0.0)
-        return F.embedding(y, table)
+        # torch padding_idx semantics: the PAD row is pinned to zero (and
+        # gets no gradient). A mask, not an index tensor built per call: a
+        # decode step copies nothing from the host.
+        return F.embedding(y, self.embedding_tgt.weight).masked_fill((y == PAD_ID)[..., None], 0.0)
 
     def decode(self, y: torch.Tensor, memory: torch.Tensor,
                memory_pad_mask: torch.Tensor,
@@ -218,14 +218,25 @@ class EMGModel(nn.Module):
         caches,  # (k_all, v_all), updated in place
         cross_kvs,  # per-layer (cross_k, cross_v)
         tokens: torch.Tensor,  # (B, S) all tokens so far (for PAD masking)
-        memory_pad_mask: torch.Tensor,  # (B, T)
+        memory_pad_mask: torch.Tensor,  # (U, T)
+        pe_period: Optional[int] = None,
     ) -> torch.Tensor:
-        """One incremental decode step; returns logits (B, 43) float32."""
+        """One incremental decode step; returns logits (B, 43) float32.
+
+        The memory (``cross_kvs``, ``memory_pad_mask``) holds U utterances,
+        U dividing B: decode rows [u*R, (u+1)*R) attend to utterance u, R =
+        B // U (U = B for greedy decoding, U = 1 for one utterance's beam).
+        Under ``decoder_pe="reference_batch"`` row b adds pe[b mod
+        pe_period] (default B: pe[b]); a beam over U utterances of W rows
+        each passes W, so each utterance's rows see pe[0..W-1] as they do
+        alone."""
         x = self._embed_targets(token_ids)[:, None, :]  # (B, 1, D)
         pe = self.pos_decoder.table
         if self.cfg.decoder_pe == "reference_batch":
             # constant pe[row] per batch row (see PositionalEncoding)
-            x = x + (1.0 / self.cfg.model_size) * pe[: x.shape[0]][:, None, :]
+            B = x.shape[0]
+            period = B if pe_period is None else pe_period
+            x = x + (1.0 / self.cfg.model_size) * pe[:period].repeat(B // period, 1)[:, None, :]
         else:
             x = x + (1.0 / self.cfg.model_size) * pe[step][None, None, :]
         out = self.transformerDecoder.decode_step(

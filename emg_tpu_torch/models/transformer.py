@@ -107,7 +107,9 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
     def decode_step(self, x_tok, k_cache, v_cache, cross_k, cross_v, step: int,
                     tokens_pad_mask, query_is_pad, memory_padding_mask):
         """x_tok: (B, 1, D); k_cache/v_cache: this layer's (B, H, S, Dh)
-        caches, updated in place at row ``step``."""
+        caches, updated in place at row ``step``; cross_k/cross_v: (U, H,
+        T, Dh) and memory_padding_mask (U, T) for U utterances, U dividing
+        B, rows grouped by utterance."""
         cdt = x_tok.dtype
         S = k_cache.shape[2]
         q, k_new, v_new = self.self_attn.project_qkv(x_tok)  # (B, H, 1, Dh)
@@ -120,13 +122,20 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
         x = layer_norm(self.norm1, x_tok + sa, cdt)
 
         # cross-attention (no query masking, matching the reference); logits
-        # accumulate float32 so the softmax stays exact at bfloat16
+        # accumulate float32 so the softmax stays exact at bfloat16. The
+        # memory holds U utterances and the B rows attend to it in U groups
+        # of R (as emg_tpu/models/transformer.py's batch-1 memory branch):
+        # a broadcast, so no utterance's K/V is copied per row.
         mha = self.multihead_attn
-        qc = mha.project_q(x)
-        logits = torch.einsum("bhqa,bhka->bhqk", qc.float(), cross_k.float()) / (mha.head_dim ** 0.5)
-        logits = torch.where(memory_padding_mask[:, None, None, :], NEG_FILL, logits)
+        qc = mha.project_q(x)  # (B, H, 1, Dh)
+        B, H, _, Dh = qc.shape
+        U = cross_k.shape[0]
+        qg = qc.reshape(U, B // U, H, 1, Dh)
+        logits = torch.einsum("urhqa,uhka->urhqk", qg.float(), cross_k.float()) / (mha.head_dim ** 0.5)
+        logits = torch.where(memory_padding_mask[:, None, None, None, :], NEG_FILL, logits)
         probs = torch.softmax(logits, dim=-1).to(cross_v.dtype)
-        ca = mha.output(torch.einsum("bhqk,bhka->bhqa", probs, cross_v))
+        o = torch.einsum("urhqk,uhka->urhqa", probs, cross_v).reshape(B, H, 1, Dh)
+        ca = mha.output(o)
         x = layer_norm(self.norm2, x + ca, cdt)
         return layer_norm(self.norm3, x + self.feed_forward(x), cdt)
 

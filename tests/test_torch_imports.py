@@ -2,6 +2,7 @@
 its entry points refuse to fall back to the CPU silently."""
 
 import ast
+import json
 import os
 import pkgutil
 import subprocess
@@ -40,6 +41,62 @@ def test_import_pulls_in_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(port_modules()) >= 20
+
+
+BEAM_MODULES = [
+    "emg_tpu_torch.decode.prefix_tree", "emg_tpu_torch.decode.ngram",
+    "emg_tpu_torch.decode.lm_train", "emg_tpu_torch.decode.kenlm_binary",
+    "emg_tpu_torch.decode.lm_binding", "emg_tpu_torch.decode.device_lm",
+    "emg_tpu_torch.decode.device_beam", "emg_tpu_torch.decode.beam",
+    "emg_tpu_torch.text.lexicon", "emg_tpu_torch.utils.serving",
+]
+
+
+@pytest.fixture(scope="module")
+def beam_imports():
+    """A fresh interpreter imports the beam path's modules one after
+    another; after each, the JAX or emg_tpu modules loaded so far."""
+    code = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for name in {BEAM_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"    out[name] = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", BEAM_MODULES)
+def test_beam_modules_import_no_jax(beam_imports, name):
+    assert name in port_modules()
+    assert beam_imports[name] == []
+
+
+def test_lm_binding_builds_under_build_only(tmp_path, monkeypatch):
+    """The native ARPA scorer compiles native/ngram_lm.cc into the
+    gitignored build/ tree and writes nothing into native/."""
+    from emg_tpu_torch.decode import lm_binding
+
+    native = ROOT / "native"
+
+    def listing():
+        return {p.name: p.stat().st_mtime_ns for p in native.iterdir()}
+
+    before = listing()
+    build_dir = ROOT / "build" / "emg_tpu_torch_kernels"
+    assert lm_binding.library_path().parent == build_dir
+    assert lm_binding.SOURCE == native / "ngram_lm.cc"
+    # a fresh build into a scratch build tree
+    monkeypatch.setattr(lm_binding, "BUILD_DIR", tmp_path / "build")
+    built = lm_binding.build_library()
+    assert built.parent == tmp_path / "build" and built.exists()
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [built.name]
+    assert listing() == before
 
 
 @pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py", ROOT / "chip_k4_warps.py",
@@ -84,3 +141,12 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--evaluate_saved_greedy_search", str(tmp_path / "missing.pt"),
                   "--output_directory", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--evaluate_saved_beam_search", str(tmp_path / "missing.pt"),
+                  "--output_directory", str(tmp_path)])
+    from emg_tpu_torch.decode.device_lm import build_device_lm
+    from emg_tpu_torch.decode.ngram import ArpaLanguageModel, write_fixture_arpa
+
+    write_fixture_arpa(str(tmp_path / "lm.arpa"), ["the cat sat"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_device_lm(ArpaLanguageModel(str(tmp_path / "lm.arpa")), ["THE", "CAT"])
