@@ -51,7 +51,23 @@ Phases, in order; any failure exits non-zero:
      torch.profiler; one search over a seeded 5,000-word lexicon with
      three-word homophone groups (K = 3, H = 400) and the LM's share of a
      step; the search in float32 on two utterances with K1 and K2 and with
-     their plain versions: the words agree.
+     their plain versions: the words agree;
+ 10. the training recipes: the conformer recipe at full width (768-d, 6+6,
+     kernel 31, float32, dropout 0.2) with electrode rotation, channel and
+     time drop and scheduled sampling (ramp 1) on, through the CLI's train
+     mode at the reference's max_batch_length (3 updates): losses, launches
+     (K1 only: the conformer's attention is never fused), peak memory,
+     frames/s; one warm step under torch.profiler with the unfused
+     attention's time at its shape; greedy evaluation of its model.pt in
+     bf16 through the CLI (``--recipe conformer_model``), the same path in
+     float32 with K1 and with its plain version (greedy strings agree), and
+     one beam CLI run (W = 10); the Parallel_Schedule_Sampling recipe with
+     channel and time drop on the flagship at 2+2 layers through the CLI,
+     K2 held against its plain version at every shape scheduled sampling's
+     first passes launched it with; one float32 microbatch (B=32, T=384,
+     dropout 0) with the unfused transformer attention against the fused
+     kernels (losses, encoder rows, gradients, each layer's attention at
+     the model's inputs against float64) and each variant's device ms.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -704,7 +720,7 @@ def first_divergence_margin(model, memory, mask, a, b):
     return float((logits[0, int(a[s])] - logits[0, int(b[s])]).abs())
 
 
-def whole_path_kernels_vs_plain(argv, ckpt, record):
+def whole_path_kernels_vs_plain(argv, ckpt, record, record_key="whole_path_f32"):
     from emg_tpu_torch import cli
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.data.dataset import EMGDataset
@@ -762,7 +778,7 @@ def whole_path_kernels_vs_plain(argv, ckpt, record):
             differing.append({"utterance": i, "margin": margin})
             log(f"whole path: utterance {i} greedy tokens differ; logit margin {margin}")
     result = dict(utterances=len(testset), worst=worst, differing=differing)
-    record["whole_path_f32"] = result
+    record[record_key] = result
     log(f"whole path kernels vs plain (float32) {json.dumps(result)}")
     if not (worst["features"] <= DSP_TOL["features"] and worst["signal"] <= DSP_TOL["signal"]
             and worst["edge_rel"] <= DSP_TOL["edge_rel"]):
@@ -784,19 +800,36 @@ def train_arpa_file(sentences, path: str, order: int = 3) -> str:
     return path
 
 
-def beam_cli(argv, ckpt, arpa, out_dir, record):
-    """The beam evaluation through the CLI at its defaults (bfloat16, W = 100,
-    the device beam, batch_utterances 8), K1's and K2's launches counted
-    over the run alone. Returns the launch counts."""
-    from emg_tpu_torch import cli
+def cli_config(args):
+    """The config the CLI builds from ``args``: its ``--device`` dropped,
+    its ``--recipe`` applied after the flags, as ``cli.main`` does."""
     from emg_tpu_torch.config import Config
+    from emg_tpu_torch.train.recipes import apply_recipe
+
+    args, opts = list(args), {}
+    for name in ("--device", "--recipe"):
+        if name in args:
+            i = args.index(name)
+            opts[name] = args[i + 1]
+            del args[i : i + 2]
+    cfg = Config.from_args(args)
+    return apply_recipe(cfg, opts["--recipe"]) if "--recipe" in opts else cfg
+
+
+def beam_cli(argv, ckpt, arpa, out_dir, record, cli_extra=(), key="beam_cli",
+             kernels=("iir_scan", "flash_attention_relpos")):
+    """The beam evaluation through the CLI at its defaults (bfloat16, W = 100,
+    the device beam, batch_utterances 8) and ``cli_extra``, K1's and K2's
+    launches counted over the run alone; each of ``kernels`` must launch,
+    the others must not. Returns the launch counts."""
+    from emg_tpu_torch import cli
     from emg_tpu_torch.decode.prefix_tree import init_tree
     from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
     from emg_tpu_torch.ops.iir_scan import iir_scan
     from emg_tpu_torch.text.phonemes import TextTransform
 
     full = argv + ["--device", DEVICE, "--evaluate_saved_beam_search", ckpt, "--lang_model", arpa,
-                   "--output_directory", out_dir]
+                   "--output_directory", out_dir, *cli_extra]
     iir_scan.launches = 0
     flash_attention_relpos.launches = 0
     t0 = time.perf_counter()
@@ -807,7 +840,7 @@ def beam_cli(argv, ckpt, arpa, out_dir, record):
                 "flash_attention_relpos": flash_attention_relpos.launches}
     logging.getLogger().handlers.clear()
 
-    cfg = Config.from_args(argv)
+    cfg = cli_config(full)
     dct = init_tree(cfg.paths.phonesSet, cfg.paths.vocabulary, cfg.paths.dict).compile_tables().dictionary
     tt = TextTransform()
     vocabulary = {tt.clean_text(dct.lookup_word_by_index(i).name) for i in range(dct.word_count())}
@@ -819,10 +852,10 @@ def beam_cli(argv, ckpt, arpa, out_dir, record):
                               batch_utterances=cfg.decode.batch_utterances,
                               beam_scan=cfg.decode.beam_scan),
                   predictions=[" ".join(w) for w in predicted])
-    record["beam_cli"] = result
+    record[key] = result
     log(f"beam serving through the CLI {json.dumps(result)}")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the beam path was never launched: {launches}")
+    if not all((n > 0) == (name in kernels) for name, n in launches.items()):
+        raise AssertionError(f"the beam path's kernels are not {kernels}: {launches}")
     if not 0.0 <= final < float("inf"):
         raise AssertionError(f"WER is not a finite rate: {final}")
     if not lines or any(w not in vocabulary for words in predicted for w in words):
@@ -1345,20 +1378,14 @@ def profile_step(run) -> dict:
     return result
 
 
-def train_step_kernels_vs_plain(argv, record):
-    """One float32 train step of the flagship (dropout 0.2) from the same
-    weights, batch and generator seeds, with the kernels and with their
-    plain versions."""
-    from emg_tpu_torch.config import Config
+def largest_batch(cfg):
+    """The training split's largest microbatch at the config's
+    max_batch_length, staged int16 as the trainer stages it: (its
+    utterances, the PackedBatch, max_frames)."""
     from emg_tpu_torch.data.batching import FRAME_BUCKETS, bucket_up, make_packed_batch, quantize_packed_raw
     from emg_tpu_torch.data.dataset import EMGDataset
     from emg_tpu_torch.data.sampler import DynamicBatchSampler
-    from emg_tpu_torch.models.model import EMGModel
-    from emg_tpu_torch.ops import flash_attention as fa
-    from emg_tpu_torch.parallel.train_step import make_train_step
-    from emg_tpu_torch.train.state import create_train_state
 
-    cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)])
     trainset = EMGDataset(cfg, device=DEVICE)
     sampler = DynamicBatchSampler(trainset, cfg.train.max_batch_length, cfg.train.n_buckets,
                                   seed=cfg.train.seed)
@@ -1366,8 +1393,21 @@ def train_step_kernels_vs_plain(argv, record):
     batch = EMGDataset.collate_raw([trainset[i] for i in idxs])
     pb = quantize_packed_raw(make_packed_batch(batch["raw_emg"], batch["lengths"],
                                                batch["phonemes_int"], chunk=cfg.data.packed_chunk))
-    max_frames = bucket_up(max(batch["lengths"]), FRAME_BUCKETS)
+    return idxs, pb, bucket_up(max(batch["lengths"]), FRAME_BUCKETS)
 
+
+def train_step_kernels_vs_plain(argv, record):
+    """One float32 train step of the flagship (dropout 0.2) from the same
+    weights, batch and generator seeds, with the kernels and with their
+    plain versions."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.ops import flash_attention as fa
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+
+    cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)])
+    idxs, pb, max_frames = largest_batch(cfg)
     step = make_train_step(cfg.train)
 
     def one_step(state, plain):
@@ -1427,6 +1467,396 @@ def train_step_kernels_vs_plain(argv, record):
             and noise <= STEP_NOISE_TOL):
         raise AssertionError(f"parameter gradients differ between the kernel and plain steps: {result}")
 
+# ---------------------------------------------------------------------------
+# phase 10: the training recipes
+# ---------------------------------------------------------------------------
+
+# every recipe knob on; ramp 1, so scheduled sampling mixes from the second
+# microbatch on (the recipe's own ramp of 10000 would keep it off here)
+RECIPE_KNOBS = ["--train.electrode_rotation_prob", "0.3", "--train.channel_drop_prob", "0.1",
+                "--train.time_drop_prob", "0.3", "--train.scheduled_sampling_max_prob", "0.3",
+                "--train.scheduled_sampling_ramp", "1"]
+CONFORMER = ["--recipe", "conformer_model"]
+# the transformer recipe path at full width and reduced depth
+SS_RECIPE = ["--recipe", "Parallel_Schedule_Sampling", "--train.channel_drop_prob", "0.1",
+             "--train.time_drop_prob", "0.3", "--num_layers_encoder", "2",
+             "--num_layers_decoder", "2"]
+# unfused vs fused transformer attention, float32, dropout 0: the losses to
+# rtol 1e-4; the encoder's valid rows to 1e-4 of their largest magnitude;
+# the whole gradient to 1e-4 of its norm; each parameter's gradient to
+# STEP_GRAD_TOL of its largest magnitude (phase 8's bound: a ReLU kink, or a
+# deeply cancelling sum such as a relative-position table's gradient, moves
+# one tensor by up to ~1e-2 of itself; unfused_vs_fused reports each
+# tensor over 1e-4 beside its float32 floor); BatchNorm-fed conv biases
+# (true gradient 0) to STEP_NOISE_TOL of the model's largest gradient; and,
+# directly, the first and last attention layers at the model's own inputs
+# and output gradients to 1e-4 of the unfused path in float64
+UNFUSED_TOL = 1e-4
+
+
+def attention_ms(B, T, D, H, maxpos, use_flash: bool, rate: float, key_pads_only: bool):
+    """One encoder self-attention module (projections included) at (B, T),
+    random weights, every row's key pads from T/2 on for odd rows: device ms
+    of its train-mode forward + backward (input and parameter gradients) at
+    dropout ``rate``, and of its eval-mode forward (no grad)."""
+    from emg_tpu_torch.models.attention import MultiHeadAttention
+
+    gen = torch.Generator().manual_seed(11)
+    mha = MultiHeadAttention(D, H, relative_positional=True, relative_positional_distance=maxpos,
+                             dropout=rate, use_flash=use_flash)
+    with torch.no_grad():
+        for p in mha.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * D ** -0.5)
+    mha = mha.to(DEVICE)
+    x = torch.randn(B, T, D, generator=gen).to(DEVICE).requires_grad_()
+    pad = (torch.arange(T)[None, :] >= T // 2) & (torch.arange(B)[:, None] % 2 == 1)
+    pad = pad.to(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    qp = None if key_pads_only else pad
+    leaves = [x] + list(mha.parameters())
+
+    def fwd_bwd():
+        out = mha.train()(x, x, key_padding_mask=pad, query_padding_mask=qp, generator=g)
+        return torch.autograd.grad(out.sum(), leaves)
+
+    def fwd():
+        with torch.no_grad():
+            return mha.eval()(x, x, key_padding_mask=pad, query_padding_mask=qp)
+    return dict(train_fwd_bwd_ms=time_ms(fwd_bwd, iters=10), eval_fwd_ms=time_ms(fwd, iters=10))
+
+
+def recipe_train(args, out, record, key):
+    """Train through the CLI's train mode with ``args`` (step phases
+    synchronized, for the frames they count), the five kernels' launches
+    counted over the run alone. Returns (the Trainer, its result dict)."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.train.trainer import Trainer
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_times, eval_s, per_s = [], [], []
+    t0 = time.perf_counter()
+    with mock.patch.object(Trainer, "step_times", step_times), \
+            timed_method(Trainer, "evaluation_loop", eval_s), timed_method(Trainer, "report_PER", per_s):
+        trainer = cli.main(args + ["--device", DEVICE, "--output_directory", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logging.getLogger().handlers.clear()
+    latest = torch.load(os.path.join(out, "latest"), map_location="cpu", weights_only=True)
+    losses = trainer.train_losses
+    frames = sum(st["frames"] for st in step_times)
+    loop_s = sum(trainer.epoch_seconds) - sum(t for _, t in eval_s + per_s)
+    result = dict(
+        microbatches=len(losses), updates=int(latest["updates"]), losses=losses,
+        launches={name: fn.launches for name, fn in counters.items()},
+        cli_wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        epoch_seconds=trainer.epoch_seconds, frames=frames,
+        # all frames over the train loops' wall (each epoch less its
+        # evaluation pass and PER report), and over the synchronized steps
+        frames_per_s_train_loop=frames / loop_s,
+        frames_per_s_steps=frames / sum(st["forward"] + st["backward"] + st["optimizer"]
+                                        for st in step_times) * 1e3,
+        ms_by_step=[{k: st[k] for k in ("examples", "max_frames", "forward", "backward",
+                                         "optimizer")} for st in step_times],
+        config={k: getattr(trainer.config.train, k) for k in (
+            "electrode_rotation_prob", "channel_drop_prob", "time_drop_prob",
+            "scheduled_sampling_max_prob", "scheduled_sampling_ramp")}
+        | {"encoder_kind": trainer.config.model.encoder_kind,
+           "num_layers_encoder": trainer.config.model.num_layers_encoder})
+    record[key] = result
+    log(f"{key} {json.dumps(result)}")
+    if not (len(losses) >= 4 and result["updates"] >= 2 and len(step_times) == len(losses)):
+        raise AssertionError(f"{key} ran {len(losses)} microbatches and {result['updates']} updates")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{key}: the losses are not finite: {losses}")
+    return trainer, result
+
+
+def conformer_step_profile(argv, record):
+    """One warm conformer train step with every recipe knob on (the largest
+    microbatch, scheduled sampling at its full 0.3) under torch.profiler,
+    and the unfused self-attention's part of it: per layer one train-mode
+    forward + backward and one eval-mode forward (scheduled sampling's
+    first pass), timed alone at the step's shape."""
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+
+    cfg = cli_config(argv + TRAIN_ARGS + RECIPE_KNOBS + CONFORMER + ["--batch_size_grad", str(10 ** 9)])
+    idxs, pb, max_frames = largest_batch(cfg)
+    state = create_train_state(EMGModel(cfg.model, device=DEVICE,
+                                        generator=torch.Generator().manual_seed(0)), cfg.train)
+    state.microbatches = 1  # past the ramp
+    step = make_train_step(cfg.train)
+    gen = torch.Generator(device=DEVICE)
+    profile = profile_step(lambda: step(state, pb, max_frames, gen))
+    m = cfg.model
+    attn = attention_ms(len(pb.lengths), max_frames, m.model_size, m.n_heads_encoder,
+                        m.relative_distance, use_flash=False, rate=m.dropout_model,
+                        key_pads_only=True)
+    attn_ms = m.num_layers_encoder * (attn["train_fwd_bwd_ms"] + attn["eval_fwd_ms"])
+    result = dict(examples=len(idxs), B=len(pb.lengths), max_frames=max_frames, step=profile,
+                  attention_per_layer=attn, attention_ms=attn_ms,
+                  attention_share_of_busy=attn_ms / profile["device_busy_ms"])
+    record["conformer_step"] = result
+    log(f"conformer step {json.dumps(result)}")
+
+
+def k2_at_shapes(shapes, record):
+    """K2 against its plain version at every (B, T, dtype) scheduled
+    sampling's first passes launched it with, timed."""
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_plain
+
+    relpos, gen = make_relpos(5)
+    H, Dh = relpos.embeddings.shape[0], relpos.embeddings.shape[2]
+    rows = []
+    for B, T, dtype in sorted(shapes):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(B, H, T, Dh, generator=gen).to(DEVICE, dt) for _ in range(3))
+        kp = torch.zeros(B, T, dtype=torch.bool)
+        for b in range(B):
+            kp[b, T - (b * 37) % (T // 2):] = True
+        kp = kp.to(DEVICE)
+        with torch.no_grad():
+            used, oob = relpos.window(T)
+            used = used.to(dt)
+            got = flash_attention_relpos(q, k, v, used, oob, kp)
+            ref = flash_attention_relpos_plain(q, k, v, used, oob, kp)
+            valid = ~kp[:, None, :, None].expand_as(got)
+            err = float((got - ref).abs()[valid].max())
+            size = 2 if dt == torch.bfloat16 else 4
+            bytes_moved = (3 * B * H * T * Dh + H * (2 * T - 1) * Dh) * size \
+                + (2 * T - 1) * 4 + B * T + B * H * T * Dh * 4
+            b_ms, b_by = bound(bytes_moved, 6.0 * B * H * T * T * Dh, ATTN_PEAK_FLOPS[dt])
+            row = dict(B=B, H=H, T=T, Dh=Dh, dtype=dtype, max_abs_err=err,
+                       ms=time_ms(lambda: flash_attention_relpos(q, k, v, used, oob, kp)),
+                       plain_ms=time_ms(lambda: flash_attention_relpos_plain(q, k, v, used, oob, kp)),
+                       bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"K2 at a scheduled-sampling shape {json.dumps(row)}")
+        if not err <= K2_TOL[dt]:
+            raise AssertionError(f"flash_attention_relpos disagrees with its plain version: {row}")
+    record["k2_scheduled_sampling_shapes"] = rows
+
+
+def transformer_recipe(argv, root, record):
+    """Parallel_Schedule_Sampling with channel and time drop on the flagship
+    at 2+2 layers through the CLI: K2's shapes in scheduled sampling's first
+    passes, then K2 against its plain version at each."""
+    from emg_tpu_torch.models import attention as attention_module
+    from emg_tpu_torch.parallel import train_step as train_step_module
+
+    first_pass, shapes, first_pass_launches = [False], set(), [0]
+    real_ss = train_step_module.scheduled_sampling_inputs
+    real_k2 = attention_module.flash_attention_relpos
+
+    def ss(*args):
+        first_pass[0] = True
+        try:
+            return real_ss(*args)
+        finally:
+            first_pass[0] = False
+
+    def k2(q, k, v, used, oob, kp):
+        if first_pass[0]:
+            shapes.add((q.shape[0], q.shape[2], str(q.dtype).split(".")[-1]))
+            first_pass_launches[0] += 1
+        return real_k2(q, k, v, used, oob, kp)
+    with mock.patch.object(train_step_module, "scheduled_sampling_inputs", ss), \
+            mock.patch.object(attention_module, "flash_attention_relpos", k2):
+        trainer, result = recipe_train(argv + TRAIN_ARGS + SS_RECIPE,
+                                       os.path.join(root, "ss_train"), record, "transformer_recipe")
+    n, layers = result["microbatches"], trainer.config.model.num_layers_encoder
+    result.update(first_pass_k2_launches=first_pass_launches[0], k2_shapes=sorted(shapes))
+    if not all(c > 0 for c in result["launches"].values()):
+        raise AssertionError(f"a kernel of the recipe's path was never launched: {result['launches']}")
+    if first_pass_launches[0] != layers * n:
+        raise AssertionError(f"scheduled sampling's first passes launched K2 {first_pass_launches[0]} "
+                             f"times, not {layers} per microbatch")
+    for name in ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv"):
+        if result["launches"][name] != layers * n:
+            raise AssertionError(f"{name}: {result['launches'][name]} launches, not {layers} per microbatch")
+    k2_at_shapes(shapes, record)
+
+
+def attention_at_model_inputs(mha, x, kwargs, dout) -> dict:
+    """One encoder self-attention module at the input and output gradient
+    the model gave it: its output (valid rows) and its input and parameter
+    gradients with the fused kernels (K3-K5) and on the unfused path, both
+    float32, each against the unfused path in float64, relative to the
+    reference's largest magnitude."""
+    import copy
+
+    def run(use_flash, dtype, d):
+        m = copy.deepcopy(mha).to(dtype).train()
+        m.use_flash = use_flash
+        xx = x.to(dtype).requires_grad_()
+        out = m(xx, xx, **kwargs)
+        names = ["input"] + [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(out, [xx] + list(m.parameters()), d.to(dtype))
+        return out.detach(), dict(zip(names, grads))
+
+    valid = ~kwargs["key_padding_mask"]
+    ref_out, ref = run(False, torch.float64, dout)
+    errs = {}
+    for label, flash in (("kernels", True), ("unfused", False)):
+        out, grads = run(flash, torch.float32, dout)
+        errs[label] = {"output": rel_err(out[valid], ref_out[valid])}
+        errs[label].update({n: rel_err(g, ref[n]) for n, g in grads.items()})
+    return errs
+
+
+def unfused_vs_fused(argv, record):
+    """One flagship microbatch (the largest, float32, dropout 0) through the
+    train-mode forward and backward with the unfused encoder attention and
+    with the fused kernels (K3-K5), from the same weights and generator
+    seed; a third, fused, on the raw input moved by a relative 1e-6 shows
+    each gradient's float32 floor. The first and last encoder layers'
+    attention is also held, at the inputs and output gradient of the first
+    run, against the unfused path in float64 (see UNFUSED_TOL)."""
+    import dataclasses
+
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.ops.losses import combined_loss
+    from emg_tpu_torch.parallel.train_step import batch_to_device, compute_losses
+
+    cfg = cli_config(argv + TRAIN_ARGS + ["--dropout_model", "0", "--dropout_pos_emb", "0"])
+    idxs, pb, max_frames = largest_batch(cfg)
+    sd = EMGModel(cfg.model, device=DEVICE, generator=torch.Generator().manual_seed(0)).state_dict()
+    runs, layer_inputs = [], {}
+    for flash, nudge in ((True, 0.0), (False, 0.0), (True, 1e-6)):
+        model = EMGModel(dataclasses.replace(cfg.model, use_flash_attention=flash), device=DEVICE)
+        model.load_state_dict(sd)
+        seen, hooks = {}, []
+
+        def keep_memory(module, inputs, output):
+            seen["memory"] = output.detach()
+        hooks.append(model.transformerEncoder.register_forward_hook(keep_memory))
+        layers = model.transformerEncoder.layers
+        if not runs:  # the first layer's and the last layer's attention
+            for i in (0, len(layers) - 1):
+                def keep_inputs(module, args, kwargs, output, i=i):
+                    rec = layer_inputs[i] = dict(mha=module, x=args[0].detach(), kwargs={
+                        k: kwargs[k] for k in ("key_padding_mask", "query_padding_mask")})
+                    output.register_hook(lambda g: rec.__setitem__("dout", g.detach()))
+                hooks.append(layers[i].self_attn.register_forward_hook(keep_inputs, with_kwargs=True))
+        dev = batch_to_device(pb, DEVICE)
+        if nudge:  # the floor: the raw input moved by a relative 1e-6
+            noise = torch.randn(dev["packed_raw"].shape, generator=torch.Generator(device=DEVICE).manual_seed(2),
+                                device=DEVICE)
+            dev["packed_raw"] = dev["packed_raw"] * (1.0 + nudge * noise)
+        dec, enc = compute_losses(model.train(), dev, max_frames,
+                                  torch.Generator(device=DEVICE).manual_seed(1))
+        loss = combined_loss(dec, enc, cfg.train.alpha_loss)
+        loss.backward()
+        for hook in hooks:
+            hook.remove()
+        valid = torch.arange(max_frames, device=DEVICE)[None, :] < dev["lengths"][:, None]
+        runs.append(dict(losses=[float(t.detach()) for t in (loss, dec, enc)], memory=seen["memory"][valid],
+                         grads={k: p.grad.detach().clone() for k, p in model.named_parameters()}))
+    largest = max(float(g.abs().max()) for g in runs[0]["grads"].values())
+
+    def compare(a, b):
+        """Losses, the encoder's valid rows, the whole gradient (norm), and
+        each gradient's largest error over its largest magnitude; the
+        BatchNorm-fed conv biases (true gradient 0) over the model's
+        largest gradient instead."""
+        each, noise, diff_sq, ref_sq = {}, 0.0, 0.0, 0.0
+        for name, g in b["grads"].items():
+            d = a["grads"][name] - g
+            diff_sq += float(d.pow(2).sum())
+            ref_sq += float(g.pow(2).sum())
+            if name.startswith("conv_blocks") and name.endswith(("conv1.bias", "conv2.bias",
+                                                                "residual_path.bias")):
+                noise = max(noise, float(d.abs().max()) / largest)
+            else:
+                each[name] = float(d.abs().max()) / max(float(g.abs().max()), 1e-30)
+        return dict(loss_rel_err=[abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])],
+                    memory_rel_err=rel_err(a["memory"], b["memory"]),
+                    grad_norm_rel_err=(diff_sq / ref_sq) ** 0.5,
+                    bn_fed_bias_err_of_largest=noise, each=each)
+    unfused, floor = compare(runs[1], runs[0]), compare(runs[2], runs[0])
+    # the gradients over 1e-4 of their largest magnitude, beside how far
+    # each moves when the raw input moves by a relative 1e-6 (its float32
+    # floor): deeply cancelling sums (the relative-position tables, the
+    # BatchNorm shifts) sit near their floor; a feed-forward weight far over
+    # it has a ReLU whose input lay within the attention's ~1e-6 of zero
+    over = {name: dict(err=e, floor=floor["each"][name]) for name, e in unfused["each"].items()
+            if e > UNFUSED_TOL}
+    worst_each = max(unfused["each"].values())
+    for c in (unfused, floor):
+        c["worst"] = dict(sorted(c.pop("each").items(), key=lambda kv: -kv[1])[:8])
+    B, m = len(pb.lengths), cfg.model
+    result = dict(examples=len(idxs), B=B, max_frames=max_frames, largest_grad=largest,
+                  losses={"fused": runs[0]["losses"], "unfused": runs[1]["losses"]},
+                  unfused_vs_fused=unfused, nudged_vs_fused=floor, over_1e_4=over,
+                  layer_attention_vs_float64={
+                      f"layer{i}": attention_at_model_inputs(r["mha"], r["x"], r["kwargs"], r["dout"])
+                      for i, r in sorted(layer_inputs.items())},
+                  attention_ms={variant: attention_ms(B, max_frames, m.model_size, m.n_heads_encoder,
+                                                      m.relative_distance, use_flash=flash, rate=0.0,
+                                                      key_pads_only=False)
+                                for variant, flash in (("fused", True), ("unfused", False))})
+    record["unfused_vs_fused"] = result
+    log(f"unfused vs fused attention (float32) {json.dumps(result)}")
+    layer_errs = [e for layer in result["layer_attention_vs_float64"].values()
+                  for label in ("kernels", "unfused") for e in layer[label].values()]
+    if not (max(unfused["loss_rel_err"]) <= UNFUSED_TOL and unfused["memory_rel_err"] <= UNFUSED_TOL
+            and unfused["grad_norm_rel_err"] <= UNFUSED_TOL and worst_each <= STEP_GRAD_TOL
+            and unfused["bn_fed_bias_err_of_largest"] <= STEP_NOISE_TOL
+            and max(layer_errs) <= UNFUSED_TOL):
+        raise AssertionError(f"the unfused attention disagrees with the fused one: {unfused}, {over}, "
+                             f"{result['layer_attention_vs_float64']}")
+
+
+def recipes_phase(argv, root, record):
+    """Phase 10: the conformer recipe with every knob on at full width
+    through the CLI, its step's profile, its model.pt greedy- (bf16, and
+    float32 kernels vs plain) and beam-evaluated; the transformer's
+    scheduled-sampling recipe; the unfused attention against the fused."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
+    from emg_tpu_torch.ops.iir_scan import iir_scan
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "conformer_train")
+    trainer, result = recipe_train(argv + TRAIN_ARGS + RECIPE_KNOBS + CONFORMER, out, record,
+                                   "conformer_recipe")
+    launches = result["launches"]
+    if trainer.config.model.encoder_kind != "conformer" or launches["iir_scan"] == 0 or any(
+            launches[name] for name in launches if name != "iir_scan"):
+        raise AssertionError(f"the conformer recipe did not run as set up: {result['config']}, "
+                             f"{launches} (its attention is never fused)")
+    conformer_step_profile(argv, record)
+
+    ckpt = os.path.join(out, "model.pt")
+    iir_scan.launches = flash_attention_relpos.launches = 0
+    per, acc = cli.main(argv + CONFORMER + ["--device", DEVICE, "--evaluate_saved_greedy_search", ckpt,
+                                            "--output_directory", os.path.join(root, "conformer_eval")])
+    logging.getLogger().handlers.clear()
+    record["conformer_greedy"] = dict(per=per, accuracy=acc, launches={
+        "iir_scan": iir_scan.launches, "flash_attention_relpos": flash_attention_relpos.launches})
+    log(f"conformer greedy (bf16) {json.dumps(record['conformer_greedy'])}")
+    if not (0.0 <= per < float("inf") and iir_scan.launches > 0 and flash_attention_relpos.launches == 0):
+        raise AssertionError(f"conformer greedy serving: {record['conformer_greedy']}")
+    whole_path_kernels_vs_plain(argv + ["--encoder_kind", "conformer"], ckpt, record,
+                                record_key="conformer_whole_path_f32")
+    beam_cli(argv, ckpt, os.path.join(root, "lm.arpa"), os.path.join(root, "conformer_beam"), record,
+             cli_extra=CONFORMER + ["--BeamWidth", "10"], key="conformer_beam_cli",
+             kernels=("iir_scan",))
+
+    transformer_recipe(argv, root, record)
+    unfused_vs_fused(argv, record)
+    record["recipes_phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 took {record['recipes_phase_s']:.1f} s")
+    summary = {k: record[k] for k in ("conformer_recipe", "conformer_step", "conformer_greedy",
+                                      "transformer_recipe", "k2_scheduled_sampling_shapes",
+                                      "unfused_vs_fused", "recipes_phase_s")}
+    summary["conformer_beam_wer"] = record["conformer_beam_cli"]["wer"]
+    print(json.dumps({"recipes": summary}, default=str), flush=True)
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1481,6 +1911,8 @@ def main():
         train_step_kernels_vs_plain(argv, record)
         log("phase 9: beam serving at full width")
         beam_launches = beam_serving(argv, ckpt, root, record)
+        log("phase 10: the training recipes")
+        recipes_phase(argv, root, record)
 
     # K1 and K2 count over the greedy serving run (phase 9's JSON holds
     # their counts over the beam run), K3-K5 over the training run

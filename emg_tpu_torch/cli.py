@@ -3,11 +3,12 @@
 Counterpart of ``emg_tpu/cli.py`` (reference recognition_model.py:385-420):
 
   python -m emg_tpu_torch.cli --output_directory OUT [--resume] \\
-      [--start_training_from MODEL.pt] [--device cuda|cpu] [--section.key value ...]
+      [--start_training_from MODEL.pt] [--device cuda|cpu] [--recipe NAME] \\
+      [--section.key value ...]
   python -m emg_tpu_torch.cli --evaluate_saved_greedy_search MODEL.pt \\
-      [--device cuda|cpu] [--section.key value ...]
+      [--device cuda|cpu] [--recipe NAME] [--section.key value ...]
   python -m emg_tpu_torch.cli --evaluate_saved_beam_search MODEL.pt \\
-      --lang_model LM.arpa [--device cuda|cpu] [--section.key value ...]
+      --lang_model LM.arpa [--device cuda|cpu] [--recipe NAME] [--section.key value ...]
 
 With no evaluate flag it trains (``train.trainer.Trainer``), logging to
 <output_directory>/log.txt and writing ``latest`` (the full train state,
@@ -22,7 +23,10 @@ checkpoint is a ``torch.save``d state dict in the reference's key names:
 the port's model.pt, a reference ``.pt`` file, or
 ``utils/convert.py::state_dict_from_flax`` of the JAX package's variables.
 ``--debug`` runs on the CPU whatever ``--device`` says, as the reference's
-``--debug`` does.
+``--debug`` does. ``--recipe NAME`` applies a named training recipe
+(``train/recipes.py``) after the flags, in every mode, so it overrides an
+explicit flag it sets and ``--recipe conformer_model`` also builds the
+conformer to evaluate a conformer's model.pt.
 """
 
 from __future__ import annotations
@@ -268,19 +272,36 @@ def _pop_flag(argv, name: str, default=None):
     return default
 
 
+def _print_help():
+    from emg_tpu_torch.train.recipes import RECIPES
+
+    print(__doc__)
+    print("Flags (bare names accepted when unambiguous, or --section.key):\n")
+    cfg = Config()
+    for f in dataclasses.fields(cfg):
+        section = getattr(cfg, f.name)
+        for sf in dataclasses.fields(section):
+            print(f"  --{f.name}.{sf.name}  (default: {getattr(section, sf.name)!r})")
+    print("\n  --device {cuda,cpu}  (default: 'cuda')")
+    print(f"  --recipe {{{','.join(sorted(RECIPES))}}}")
+
+
 def main(argv=None):
     """Dispatch on the evaluate flags: beam or greedy evaluation, or training."""
+    from emg_tpu_torch.train.recipes import apply_recipe
+
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--help" in argv or "-h" in argv:
-        print(__doc__)
+        _print_help()
         return None
     device = _pop_flag(argv, "device", "cuda")
-    if _pop_flag(argv, "recipe") is not None:
-        raise NotImplementedError("training recipes are not yet ported")
+    recipe = _pop_flag(argv, "recipe")
     cfg = Config.from_args(argv)
     if cfg.paths.debug:
         # --debug runs on the CPU, as the reference's does
         device = "cpu"
+    if recipe is not None:
+        apply_recipe(cfg, recipe)
     if cfg.paths.evaluate_saved_beam_search:
         _setup_logging(cfg.paths.output_directory, "log_beam_search.txt")
         return evaluate_saved_beam_search(cfg, device=device)

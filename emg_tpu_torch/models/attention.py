@@ -7,12 +7,18 @@ reference's MultiHeadAttention + LearnedRelativePositionalEmbedding
 per-head table of 2*maxpos-1 learned relative-position embeddings. All
 shapes are batch-first (B, T, D).
 
-Encoder self-attention goes through the fused kernels: in eval mode
-``ops.flash_attention_relpos`` (serving), in train mode
-``ops.flash_attention_relpos_train`` (forward and backward kernels, with
-the attention dropout inside them); on the CPU both are their plain
-versions. The decoder's causal self-attention and cross-attention are plain
-tensor code.
+With ``use_flash`` (the transformer encoder under
+``model.use_flash_attention``, the default), encoder self-attention goes
+through the fused kernels: in eval mode ``ops.flash_attention_relpos``
+(serving), in train mode ``ops.flash_attention_relpos_train`` (forward and
+backward kernels, with the attention dropout inside them); on the CPU both
+are their plain versions. Every other attention is the JAX package's
+unfused path in plain tensor code: the logits, the causal mask, -1e8 at key
+pads and then at query pads, and only then the relative logits
+(``LearnedRelativePositionalBias.forward``, skewed by
+``relative_to_absolute``), so a masked logit is -1e8 + rel, as in JAX. That
+path serves the decoder, the conformer (whose attention JAX never fuses)
+and the transformer encoder under ``use_flash_attention=false``.
 
 Train mode (``module.train()``) applies the reference's dropouts. Every
 random draw comes from the ``torch.Generator`` the caller passes down (on
@@ -55,6 +61,18 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
                          dtype=torch.int64).to(torch.int32)
 
 
+def relative_to_absolute(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, 2L-1) relative logits -> (B, H, L, L) absolute logits,
+    out[b,h,q,k] = x[b,h,q, k-q+L-1], by the pad/reshape skew of
+    ``emg_tpu/models/attention.py::relative_to_absolute``."""
+    B, H, L, W = x.shape
+    if W != 2 * L - 1:
+        raise ValueError(f"relative logits of width {W} for length {L}")
+    x = nn.functional.pad(x, (0, 1)).reshape(B, H, L * 2 * L)
+    x = nn.functional.pad(x, (0, L - 1)).reshape(B, H, L + 1, 2 * L - 1)
+    return x[:, :, :L, L - 1 :]
+
+
 class LearnedRelativePositionalBias(nn.Module):
     """Unmasked (encoder) relative positional logits. The parameter keeps
     the reference's (H, 2*maxpos-1, Dh, 1) shape, so reference checkpoints
@@ -83,12 +101,25 @@ class LearnedRelativePositionalBias(nn.Module):
         oob = torch.where((m < pad) | (m >= 2 * L - 1 - pad), NEG_FILL, 0.0).to(torch.float32)
         return used, oob
 
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        """q: (B, H, L, Dh) projected queries -> (B, H, L, L) relative
+        logits at q's dtype; the out-of-range mask enters only where the
+        window outgrows the table (L > max_relative_pos), as in JAX."""
+        L = q.shape[2]
+        used, oob = self.window(L)
+        rel = torch.einsum("bhld,hmd->bhlm", q, used.to(q.dtype))
+        if L > self.max_relative_pos:
+            rel = rel + oob.to(q.dtype)
+        return relative_to_absolute(rel)
+
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, relative_positional: bool = False,
-                 relative_positional_distance: int = 100, dropout: float = 0.0):
+                 relative_positional_distance: int = 100, dropout: float = 0.0,
+                 use_flash: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.use_flash = use_flash
         H = num_heads
         Dh = d_model // H
         if Dh * H != d_model:
@@ -139,7 +170,7 @@ class MultiHeadAttention(nn.Module):
             q = self.project_q(query)
             k, v = self.project_kv(key)
 
-        if self.relative_positional is not None and not causal:
+        if self.use_flash and self.relative_positional is not None and not causal:
             seed = None
             if self.training:
                 # at rate 0 no seed is drawn, as the JAX package draws none
@@ -158,6 +189,8 @@ class MultiHeadAttention(nn.Module):
             logits = torch.where(key_padding_mask[:, None, None, :], NEG_FILL, logits)
         if query_padding_mask is not None:
             logits = torch.where(query_padding_mask[:, None, :, None], NEG_FILL, logits)
+        if self.relative_positional is not None:
+            logits = logits + self.relative_positional(q)
         probs = torch.softmax(logits, dim=-1)
         probs = dropout(probs, self.dropout, generator, self.training)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)

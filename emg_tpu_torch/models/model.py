@@ -1,12 +1,17 @@
-"""The EMG-to-phoneme model: ResBlock CNN subsampler + transformer
-encoder-decoder with dual CTC/CE heads.
+"""The EMG-to-phoneme model: ResBlock CNN subsampler + transformer or
+conformer encoder, transformer decoder, dual CTC/CE heads.
 
 Counterpart of ``emg_tpu/models/model.py`` (reference Model,
 architecture.py:50-188): raw-EMG packed rows -> stride-8 CNN -> linear ->
 per-utterance re-batching (a gather replaces the reference's
-decollate_tensor + pad_sequence) -> relative-positional transformer
-encoder -> CTC head; target embedding (+1/d-scaled sinusoidal PE) ->
-causal transformer decoder with cross-attention -> CE head.
+decollate_tensor + pad_sequence) -> relative-positional encoder -> CTC
+head; target embedding (+1/d-scaled sinusoidal PE) -> causal transformer
+decoder with cross-attention -> CE head. The encoder is
+``models/transformer.py::TransformerEncoder`` (its self-attention fused
+under ``use_flash_attention``, unfused otherwise) or, for
+``encoder_kind="conformer"``, ``models/conformer.py::ConformerEncoder``;
+either is ``transformerEncoder``, reached only through
+``transformerEncoder(src, mask, generator)``.
 
 Train mode (``model.train()``): BatchNorm takes batch statistics over the
 valid packed rows, the dropouts of ``dropout_model`` / ``dropout_pos_emb``
@@ -19,7 +24,8 @@ reference ``.pt`` file (or ``utils/convert.py::state_dict_from_flax`` of the
 JAX package's variables) loads with ``load_state_dict``. With
 ``compute_dtype="bfloat16"`` activations run at bfloat16 with parameters
 cast at use; ``w_aux`` and ``w_out`` run in float32 and the memory returns
-to float32 after the encoder, as in the JAX package.
+to float32 after the encoder, as in the JAX package (the conformer runs
+float32 throughout, see ``models/conformer.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from emg_tpu_torch.config import ModelConfig
+from emg_tpu_torch.models.conformer import ConformerEncoder
 from emg_tpu_torch.models.positional import PositionalEncoding
 from emg_tpu_torch.models.resnet import ConvStack, MaskedBatchNorm
 from emg_tpu_torch.models.transformer import TransformerDecoder, TransformerEncoder, linear
@@ -80,18 +87,10 @@ class EMGModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.encoder_kind != "transformer":
-            raise NotImplementedError(
-                f"encoder_kind={cfg.encoder_kind!r} is not yet ported (transformer only)"
-            )
         if cfg.sequence_shard:
             raise NotImplementedError("sequence_shard is not yet ported")
         if cfg.remat:
             raise NotImplementedError("remat (rematerialized encoder layers) is not yet ported")
-        if not cfg.use_flash_attention:
-            raise NotImplementedError(
-                "use_flash_attention=false (the unfused attention path) is not yet ported"
-            )
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
@@ -103,10 +102,16 @@ class EMGModel(nn.Module):
             D, index_axis="batch" if cfg.decoder_pe == "reference_batch" else "position",
             dropout=cfg.dropout_pos_emb,
         )
-        self.transformerEncoder = TransformerEncoder(
-            cfg.num_layers_encoder, D, cfg.n_heads_encoder, cfg.feed_forward_layer_size,
-            cfg.relative_distance, cfg.dropout_model,
-        )
+        if cfg.encoder_kind == "conformer":
+            self.transformerEncoder = ConformerEncoder(
+                cfg.num_layers_encoder, D, cfg.n_heads_encoder, cfg.feed_forward_layer_size,
+                cfg.relative_distance, cfg.dropout_model, cfg.conformer_conv_kernel_size,
+            )
+        else:
+            self.transformerEncoder = TransformerEncoder(
+                cfg.num_layers_encoder, D, cfg.n_heads_encoder, cfg.feed_forward_layer_size,
+                cfg.relative_distance, cfg.dropout_model, cfg.use_flash_attention,
+            )
         self.transformerDecoder = TransformerDecoder(
             cfg.num_layers_decoder, D, cfg.n_heads_decoder, cfg.feed_forward_layer_size,
             cfg.dropout_model,
@@ -136,7 +141,7 @@ class EMGModel(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator) * p.shape[2] ** -0.5)
             elif name == "embedding_tgt.weight":
                 p.copy_(torch.randn(p.shape, generator=generator))
-            else:  # conv (out, in, k) and linear (out, in) weights
+            else:  # conv (out, in, k), depthwise (D, 1, k) and linear (out, in)
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
 

@@ -3,8 +3,9 @@
 Counterpart of ``emg_tpu/models/transformer.py``. Layer topology matches the
 reference TransformerEncoderLayer / TransformerDecoderLayer
 (transformer.py:11-134): residual -> LayerNorm after each sublayer,
-relative-positional self-attention in the encoder only, causal + padding
-masks in the decoder. In train mode (``module.train()``) every residual
+relative-positional self-attention in the encoder only (the fused kernels
+with ``use_flash``, else the unfused path with key and query pad masks),
+causal + padding masks in the decoder. In train mode (``module.train()``) every residual
 branch, the feed-forward hidden layer and the attention probabilities take
 dropout at ``dropout``, each mask drawn from the ``generator`` passed to
 ``forward``. Parameter names follow the reference
@@ -51,12 +52,14 @@ class _FeedForwardMixin:
 
 class TransformerEncoderLayer(nn.Module, _FeedForwardMixin):
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 relative_positional_distance: int, dropout: float = 0.0):
+                 relative_positional_distance: int, dropout: float = 0.0,
+                 use_flash: bool = False):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiHeadAttention(
             d_model, num_heads, relative_positional=True,
             relative_positional_distance=relative_positional_distance, dropout=dropout,
+            use_flash=use_flash,
         )
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
@@ -142,11 +145,12 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
-                 relative_positional_distance: int, dropout: float = 0.0):
+                 relative_positional_distance: int, dropout: float = 0.0,
+                 use_flash: bool = False):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, num_heads, d_ff, relative_positional_distance,
-                                    dropout)
+                                    dropout, use_flash)
             for _ in range(num_layers)
         ])
 

@@ -9,18 +9,34 @@ combine as (1-alpha)*dec + alpha*enc. Gradients sum across microbatches and
 apply once the summed example count reaches batch_size_grad, at the warmup
 LR of the *microbatch* counter.
 
+The training recipes (``train/recipes.py``) act here, as in the JAX step
+(``emg_tpu/parallel/train_step.py:71-97, 145-185``):
+- the raw-EMG augmentations (``augment_packed``), after the int16
+  dequantization and before the model (so before its time shift):
+  electrode rotation (roll the channel axis by +1 or -1), channel drop (a
+  (C,) keep mask over every packed row) and time drop (one span over the
+  flattened N*L packed stream, which may cross rows);
+- parallel scheduled sampling (``scheduled_sampling_inputs``): a
+  gradient-free first pass in eval mode (running BatchNorm statistics, no
+  shift, no dropout, the serving attention) on the augmented batch; its
+  argmax, shifted right behind the leading <S>, replaces each teacher input
+  but the first with probability ss_prob = max_prob * min(1, microbatches
+  / max(ramp, 1)); then the train-mode pass on the mixed inputs.
+
 Randomness: each microbatch reseeds the caller's ``torch.Generator`` from
 (train.seed, microbatch counter), as the JAX step folds the counter into
 its key, so a resumed run draws what an uninterrupted one would. The step
-draws the time shift first, then the dropout masks in forward order.
-
-Scheduled sampling and the raw-EMG augmentation recipes are not ported
-yet: a config that turns one on raises.
+draws the recipes' randomness first (``draw_recipe_randomness``: only the
+draws whose knob is on, so with every knob at 0 the sequence is the one
+without recipes), then the time shift, then the dropout masks in forward
+order. Every draw is made on the generator's device; none is read back to
+the host.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -59,13 +75,15 @@ def batch_to_device(batch: PackedBatch, device) -> Dict[str, object]:
 
 
 def compute_losses(model, batch: Dict[str, object], max_frames: int,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   tgt_in: Optional[torch.Tensor] = None):
     """Returns (dec_loss, enc_loss) for a device batch, in the model's
-    current mode (train or eval)."""
+    current mode (train or eval). The decoder's inputs are ``tgt_in``
+    where given, else the teacher's targets[:, :-1]."""
     targets = batch["targets"]
     enc_logits, dec_logits = model(
         batch["packed_raw"], batch["n_rows"], batch["offsets"], batch["lengths"],
-        targets[:, :-1], max_frames, generator,
+        targets[:, :-1] if tgt_in is None else tgt_in, max_frames, generator,
     )
     n = batch["n_examples"]
     enc_loss = ctc_loss(
@@ -76,11 +94,92 @@ def compute_losses(model, batch: Dict[str, object], max_frames: int,
     return dec_loss, enc_loss
 
 
-def _check_ported(cfg) -> None:
-    for name in ("scheduled_sampling_max_prob", "electrode_rotation_prob",
-                 "channel_drop_prob", "time_drop_prob"):
-        if getattr(cfg, name) > 0:
-            raise NotImplementedError(f"train.{name} > 0 is not yet ported")
+@dataclass
+class RecipeDraws:
+    """One microbatch's recipe randomness, as device tensors; a field is
+    None where its knob is off."""
+    rotation_shift: Optional[torch.Tensor] = None  # () int64: 0 (not this step), +1 or -1
+    channel_keep: Optional[torch.Tensor] = None  # (C,) bool
+    time_drop: Optional[torch.Tensor] = None  # (N*L,) bool: the dropped span
+    ss_mix: Optional[torch.Tensor] = None  # (B, S-1) bool, False at position 0
+
+
+def draw_recipe_randomness(generator: torch.Generator, cfg, packed_shape, seq_len: int,
+                           n_targets: int, ss_prob: float) -> RecipeDraws:
+    """The recipes' draws for a packed batch of ``packed_shape`` (N, L, C)
+    and ``n_targets`` teacher rows of ``seq_len`` inputs, in a fixed order
+    (rotation, channel drop, time drop, scheduled sampling), each only where
+    its knob is on. Bernoulli(p) is a uniform draw below p, as
+    ``jax.random.bernoulli``."""
+    dev = generator.device
+    N, L, C = packed_shape
+
+    def uniform(shape=()):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    draws = RecipeDraws()
+    if cfg.electrode_rotation_prob > 0:
+        do = uniform() < cfg.electrode_rotation_prob
+        up = uniform() < 0.5
+        draws.rotation_shift = torch.where(do, torch.where(up, 1, -1), 0)
+    if cfg.channel_drop_prob > 0:
+        draws.channel_keep = ~(uniform((C,)) < cfg.channel_drop_prob)
+    if cfg.time_drop_prob > 0:
+        do = uniform() < cfg.time_drop_prob
+        total = N * L
+        start = torch.randint(0, total, (), generator=generator, device=dev)
+        length = torch.randint(1, cfg.time_drop_max_samples + 1, (), generator=generator,
+                               device=dev)
+        draws.time_drop = time_drop_span(total, start, length, do)
+    if cfg.scheduled_sampling_max_prob > 0:
+        mix = uniform((n_targets, seq_len)) < ss_prob
+        draws.ss_mix = mix & (torch.arange(seq_len, device=dev)[None, :] >= 1)
+    return draws
+
+
+def time_drop_span(total: int, start: torch.Tensor, length: torch.Tensor,
+                   do: torch.Tensor) -> torch.Tensor:
+    """(total,) bool: positions [start, start + length) where ``do``."""
+    pos = torch.arange(total, device=start.device)
+    return (pos >= start) & (pos < start + length) & do
+
+
+def augment_packed(packed: torch.Tensor, draws: RecipeDraws) -> torch.Tensor:
+    """The raw-EMG augmentations of ``draws`` on packed rows (N, L, C), in
+    the JAX step's order: rotation, channel drop, time drop (the rows as
+    they are where no knob is on). Pure gathers, 0/1 products and selects,
+    so equal draws give bitwise-equal rows."""
+    N, L, C = packed.shape
+    if draws.rotation_shift is not None:
+        # roll by the drawn shift with no host read: out[c] = x[(c - s) mod C]
+        idx = (torch.arange(C, device=packed.device) - draws.rotation_shift) % C
+        packed = packed.index_select(2, idx)
+    if draws.channel_keep is not None:
+        packed = packed * draws.channel_keep[None, None, :].to(packed.dtype)
+    if draws.time_drop is not None:
+        packed = torch.where(draws.time_drop.reshape(N, L)[:, :, None], 0.0, packed)
+    return packed
+
+
+def scheduled_sampling_inputs(model, batch: Dict[str, object], max_frames: int,
+                              mix: torch.Tensor) -> torch.Tensor:
+    """Parallel scheduled sampling's decoder inputs: a gradient-free pass in
+    eval mode (running BatchNorm statistics, which it leaves as they are;
+    no shift, no dropout; the serving attention), its argmax shifted right
+    behind the leading <S>, taken where ``mix`` is set. The model is back in
+    train mode on return."""
+    first = batch["targets"][:, :-1]
+    model.eval()
+    try:
+        with torch.no_grad():
+            _, dec_logits = model(batch["packed_raw"], batch["n_rows"], batch["offsets"],
+                                  batch["lengths"], first, max_frames)
+    finally:
+        model.train()
+    # the prediction for input position j is the model's output at j - 1
+    preds = dec_logits.argmax(dim=-1)
+    pred_inputs = torch.cat([first[:, :1], preds[:, :-1]], dim=1)
+    return torch.where(mix, pred_inputs, first)
 
 
 class _Clock:
@@ -116,7 +215,6 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
     LR when the summed example count reaches batch_size_grad. With
     ``step_times`` (a list), each step appends its synchronized
     forward/backward/optimizer ms."""
-    _check_ported(cfg)
     alpha = cfg.alpha_loss
 
     def train_step(state: TrainState, batch: PackedBatch, max_frames: int,
@@ -125,7 +223,16 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
         clock = _Clock(step_times, model.device)
         generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
         dev = batch_to_device(batch, model.device)
-        dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator)
+        targets = dev["targets"]
+        ss_prob = cfg.scheduled_sampling_max_prob * min(
+            1.0, state.microbatches / max(cfg.scheduled_sampling_ramp, 1))
+        draws = draw_recipe_randomness(generator, cfg, dev["packed_raw"].shape,
+                                       targets.shape[1] - 1, targets.shape[0], ss_prob)
+        dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
+        tgt_in = None
+        if draws.ss_mix is not None:
+            tgt_in = scheduled_sampling_inputs(model, dev, max_frames, draws.ss_mix)
+        dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
         loss = combined_loss(dec_loss, enc_loss, alpha)
         clock.mark("forward")
         loss.backward()

@@ -12,6 +12,13 @@ numerics: the matmuls see bit-identical bfloat16 weights either way.
 Only the big matmul/conv operands are cast. LayerNorm/BatchNorm parameters
 and statistics, embeddings, the relative-positional table, and the output
 heads (``w_aux``/``w_out`` run float32 by design) keep float32.
+
+The conformer is the exception to "numerics unchanged", in JAX as here:
+its attention projections are cast with every other ``w_q``/``w_k``/
+``w_v``/``w_o``, but the conformer runs float32 (``models/conformer.py``),
+so its projections upcast the bfloat16-ROUNDED weights. The cast set is
+kept identical to the JAX package's, conformer included, so the two beams
+see the same weights.
 """
 
 from __future__ import annotations

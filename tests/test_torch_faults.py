@@ -2,10 +2,9 @@
 CPU, as the JAX package's CLI does (``emg_tpu/cli.py``: ``--debug`` forces
 the CPU platform).
 
-- ``model.remat`` (the JAX package rematerializes encoder layers) and
-  ``model.use_flash_attention=false`` (the JAX package's unfused attention,
-  which masks pad query rows) raise ``NotImplementedError`` when the model
-  is built, rather than being accepted and ignored.
+- ``model.remat`` (the JAX package rematerializes encoder layers) raises
+  ``NotImplementedError`` when the model is built, rather than being
+  accepted and ignored.
 - ``--debug`` hands ``device="cpu"`` to both CLI modes, whatever
   ``--device`` says.
 """
@@ -24,8 +23,7 @@ SMALL = dict(model_size=16, feed_forward_layer_size=32, num_layers_encoder=1,
 
 @pytest.mark.parametrize("option, pattern", [
     (dict(remat=True), "remat"),
-    (dict(use_flash_attention=False), "use_flash_attention"),
-], ids=["remat", "unfused_attention"])
+], ids=["remat"])
 def test_unported_model_options_raise(option, pattern):
     with pytest.raises(NotImplementedError, match=pattern):
         EMGModel(ModelConfig(**SMALL, **option), device="cpu")
