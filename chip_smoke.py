@@ -24,11 +24,20 @@ Phases, in order; any failure exits non-zero:
   5. the serving path at full width (768-d, 6+6 layers, 8 heads, bfloat16,
      random weights from a seeded torch.Generator) through the port's CLI
      entry point on a synthetic corpus, with the kernels' launch counts
-     taken over that run alone, and the per-utterance time of DSP, encode
-     and decode; a torch.profiler trace of one warm preprocess_emg at the
-     16384-sample bucket (device busy ms, kernel 1's share, kernel count);
+     taken over that run alone (K1 272, K2 48: no kernel sits in a decode
+     graph) and its greedy decode through CUDA graphs (a runner that
+     replayed), and the per-utterance time of DSP, encode and decode;
+     greedy decode three ways, warm: the CUDA graphs (k = 4 steps a
+     replay), the eager loop at the same cadence (``graphed=False``) and
+     the eager loop reading the card every step (the parent's loop): ms,
+     steps, host reads (CUDA's sync debug mode), bitwise equal results,
+     capture seconds and pool memory per geometry, one replay's device ms
+     and kernels (CUDA events, torch.profiler); a torch.profiler trace of
+     one warm preprocess_emg at the 16384-sample bucket (device busy ms,
+     kernel 1's share, kernel count);
   6. the same path in float32 with the kernels and with their plain
      versions: DSP outputs and encoder memory agree, greedy strings match;
+     greedy decode through the graphs and eagerly, bitwise equal;
   7. training at full width (the flagship at its defaults: float32,
      dropout 0.2) through the CLI's train mode on the same corpus, at the
      reference's max_batch_length, with the five kernels' launch counts over
@@ -44,14 +53,16 @@ Phases, in order; any failure exits non-zero:
   9. beam serving at full width: an order-3 ARPA trained by the port's
      lm_train on the corpus's sentences; the beam evaluation through the
      CLI at its defaults (bfloat16, W = 100, the device beam, 8 utterances
-     a launch) with K1's and K2's launches over that run alone, a finite
-     WER and lexicon words only; per test utterance, warm, the encode and
-     search ms, steps, ms per step and host reads per step (CUDA's sync
-     debug mode counts them: at most one a step); one warm step under
-     torch.profiler; one search over a seeded 5,000-word lexicon with
-     three-word homophone groups (K = 3, H = 400) and the LM's share of a
-     step; the search in float32 on two utterances with K1 and K2 and with
-     their plain versions: the words agree;
+     a launch; its step loop through CUDA graphs) with K1's and K2's
+     launches over that run alone, a finite WER and lexicon words only;
+     per test utterance, warm, the encode and search ms, steps, ms per
+     step and host reads per step (at most one a k-step block), three ways
+     as phase 5's greedy decode, with equal finished scores and words; one
+     warm eager step and one graph replay under torch.profiler; one search
+     over a seeded 5,000-word lexicon with three-word homophone groups
+     (K = 3, H = 400), graphed and eager with equal results, and the LM's
+     share of a step; the search in float32 on two utterances with K1 and
+     K2 and with their plain versions: the words agree;
  10. the training recipes: the conformer recipe at full width (768-d, 6+6,
      kernel 31, float32, dropout 0.2) with electrode rotation, channel and
      time drop and scheduled sampling (ramp 1) on, through the CLI's train
@@ -132,6 +143,10 @@ STEP_LOSS_RTOL = 1e-4
 STEP_NORM_TOL = 1e-3
 STEP_GRAD_TOL = 2e-2
 STEP_NOISE_TOL = 1e-5
+# the greedy serving run's launches (8 test utterances: DSP in the 4096-16384
+# buckets, the encoder's six layers); the decode graphs hold no K1-K5, so a
+# kernel counted once per capture instead of per call would show here
+GREEDY_LAUNCHES = {"iir_scan": 272, "flash_attention_relpos": 48}
 DEVICE = "cuda"
 SPIN_CYCLES = 400_000_000  # ~0.2 s at the H100's boost clock
 
@@ -603,10 +618,12 @@ def utterance_input(testset, i):
 
 
 def stage_times(cfg, model, testset):
-    """Per-utterance device time of DSP, encode and decode (host clock
-    around synchronized work), over the test split, warm."""
+    """Per-utterance device time of DSP and encode (host clock around
+    synchronized work), over the test split, warm. Returns the mean ms of
+    each, the buckets, and each utterance's decode case (memory, mask,
+    buffer steps, num_steps) for ``greedy_graphs_vs_eager``."""
     from emg_tpu_torch.cli import prepare_single
-    from emg_tpu_torch.decode.greedy import encode_batch, greedy_loop
+    from emg_tpu_torch.decode.greedy import encode_batch
     from emg_tpu_torch.dsp.pipeline import preprocess_emg
 
     def timed(fn):
@@ -616,8 +633,8 @@ def stage_times(cfg, model, testset):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    totals = {"dsp": [], "encode": [], "decode": []}
-    buckets = []
+    totals = {"dsp": [], "encode": []}
+    buckets, cases = [], []
     for i in range(len(testset)):
         buf, n, n_before, n_after = utterance_input(testset, i)
         x = torch.as_tensor(buf, device=DEVICE)
@@ -627,13 +644,113 @@ def stage_times(cfg, model, testset):
             for _ in range(2):  # the second pass is warm
                 _, dsp_ms = timed(lambda: preprocess_emg(x, n, n_before, n_after))
                 (mem, _, mask), enc_ms = timed(lambda: encode_batch(model, pb, max_frames))
-                _, dec_ms = timed(lambda: greedy_loop(model, mem, mask, pb.targets.shape[1] - 1,
-                                                      S_true - 1))
         totals["dsp"].append(dsp_ms)
         totals["encode"].append(enc_ms)
-        totals["decode"].append(dec_ms)
         buckets.append((buf.shape[0], max_frames))
-    return {k: float(np.mean(v)) for k, v in totals.items()}, buckets
+        cases.append((mem, mask, pb.targets.shape[1] - 1, S_true - 1))
+    return {k: float(np.mean(v)) for k, v in totals.items()}, buckets, cases
+
+
+# ---------------------------------------------------------------------------
+# the decode loops: CUDA graphs against the eager loop (phases 5, 6 and 9)
+# ---------------------------------------------------------------------------
+
+def counted_reads(fn):
+    """fn() timed on the host clock (synchronized) under CUDA's sync debug
+    mode, which warns at every operation that waits for the card. Returns
+    (its result, ms, host reads)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def decode_runners(model, searcher=None):
+    """The three ways a loop runs, for one pass: the CUDA graphs (the
+    default), the eager loop at the same read cadence (``graphed=False``,
+    reachable only as a keyword argument), and the eager loop reading the
+    card every step (the parent's loop). With ``searcher`` (a device beam
+    searcher's constructor of ``read_every`` and ``graphed``), searchers."""
+    from emg_tpu_torch.decode.graphs import READ_EVERY, LoopRunner
+
+    variants = {"graphed": (READ_EVERY, True), "eager": (READ_EVERY, False), "eager_k1": (1, False)}
+    if searcher is None:
+        return {name: LoopRunner(model, k, graphed) for name, (k, graphed) in variants.items()}
+    return {name: searcher(read_every=k, graphed=graphed) for name, (k, graphed) in variants.items()}
+
+
+def graph_report(runner) -> dict:
+    """A runner's captures (seconds and pool memory per geometry), replays
+    and reads; one replay of its first graph timed by CUDA events (device
+    ms) and traced by torch.profiler (device busy ms and kernels)."""
+    graphs = list(runner.graphs.items())
+    if not graphs or runner.replays == 0:
+        raise AssertionError(f"the graphed loop never replayed a graph: {runner.replays} replays")
+    captured = graphs[0][1]
+
+    def replay():
+        captured.graph.replay()
+        torch.cuda.synchronize()
+    replay()
+    prof, wall = profiled(replay)
+    by_name, span, kernels = device_work(prof, "a graph replay")
+    busy = sum(by_name.values())
+    replay_ms = time_ms(captured.graph.replay, iters=10, warmup=2)
+    return dict(k=runner.k, replays=runner.replays, reads=runner.reads,
+                captures=[dict(geometry=str(key), capture_s=c.capture_s,
+                               pool_MB=c.pool_bytes / 2**20) for key, c in graphs],
+                replay=dict(geometry=str(graphs[0][0]), device_ms=replay_ms,
+                            device_ms_per_step=replay_ms / runner.k, profiled_busy_ms=busy,
+                            profiled_span_ms=span, profiled_wall_ms=wall, kernels=kernels,
+                            kernels_per_step=kernels / runner.k,
+                            longest=sorted(by_name.items(), key=lambda kv: -kv[1])[:5]))
+
+
+def greedy_graphs_vs_eager(model, cases, label: str) -> dict:
+    """Each case (memory, mask, buffer steps, num_steps) decoded greedily
+    three ways (``decode_runners``), each warm (the second of two runs) and
+    under the sync debug mode: ms, host reads, blocks; steps from the
+    every-step loop. The three must give bitwise the same matrix and raw
+    tokens."""
+    from emg_tpu_torch.decode.greedy import greedy_loop
+
+    runners = decode_runners(model)
+    rows = []
+    for i, (mem, mask, cap, steps) in enumerate(cases):
+        row, outs = dict(utterance=i, S=cap + 1, num_steps=steps), {}
+        for name, runner in runners.items():
+            for _ in range(2):
+                (out, raw), ms, reads = counted_reads(
+                    lambda: greedy_loop(model, mem, mask, cap, steps, runner=runner))
+            outs[name] = (out.cpu().numpy(), raw.cpu().numpy())
+            row[name] = dict(ms=ms, host_reads=reads, blocks=runner.blocks)
+        row["steps"] = runners["eager_k1"].blocks
+        row["extra_steps_graphed"] = runners["graphed"].blocks * runners["graphed"].k - row["steps"]
+        row["equal"] = all(np.array_equal(a, b) for name in ("eager", "eager_k1")
+                           for a, b in zip(outs["graphed"], outs[name]))
+        rows.append(row)
+    mean = {name: dict(ms=float(np.mean([r[name]["ms"] for r in rows])),
+                       median_ms=float(np.median([r[name]["ms"] for r in rows])),
+                       host_reads_per_step=float(np.mean([r[name]["host_reads"] / max(r["steps"], 1)
+                                                          for r in rows])))
+            for name in runners}
+    mean["steps"] = float(np.mean([r["steps"] for r in rows]))
+    mean["extra_steps_graphed"] = float(np.mean([r["extra_steps_graphed"] for r in rows]))
+    result = dict(label=label, utterances=rows, mean=mean, graphs=graph_report(runners["graphed"]))
+    log(f"greedy decode, graphs vs eager ({label}) {json.dumps(result)}")
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"greedy decoding through the graphs differs from the eager loop: {rows}")
+    return result
 
 
 def profile_dsp(testset, bucket: int = 16384) -> dict:
@@ -673,36 +790,71 @@ def profile_dsp(testset, bucket: int = 16384) -> dict:
     return result
 
 
+def runners_summary(runners) -> dict:
+    """What the runners a CLI run built did: replays, reads, and each
+    capture's geometry, seconds and pool memory."""
+    return dict(runners=len(runners), replays=sum(r.replays for r in runners),
+                reads=sum(r.reads for r in runners),
+                captures=[dict(geometry=str(key), capture_s=c.capture_s, pool_MB=c.pool_bytes / 2**20)
+                          for r in runners for key, c in r.graphs.items()])
+
+
+@contextlib.contextmanager
+def runners_built(sink: list):
+    """Collect every LoopRunner built inside the block into sink."""
+    from emg_tpu_torch.decode.graphs import LoopRunner
+
+    real = LoopRunner.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        sink.append(self)
+    with mock.patch.object(LoopRunner, "__init__", init):
+        yield
+
+
 def serve(argv, ckpt, record):
     from emg_tpu_torch import cli
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.data.dataset import EMGDataset
     from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
     from emg_tpu_torch.ops.iir_scan import iir_scan
+    from emg_tpu_torch.utils.serving import cast_params_for_serving
 
     full = argv + ["--device", DEVICE, "--evaluate_saved_greedy_search", ckpt]
     iir_scan.launches = 0
     flash_attention_relpos.launches = 0
+    runners = []
     t0 = time.perf_counter()
-    per, acc = cli.main(full)
+    with runners_built(runners):
+        per, acc = cli.main(full)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"iir_scan": iir_scan.launches,
                 "flash_attention_relpos": flash_attention_relpos.launches}
     logging.getLogger().handlers.clear()
+    cli_graphs = runners_summary(runners)
 
     cfg = Config.from_args(argv)
     testset = EMGDataset(cfg, test=True, device=DEVICE)
-    model = cli.load_model_for_eval(cfg, ckpt, DEVICE)
-    times, buckets = stage_times(cfg, model, testset)
+    # the CLI's serving model: bf16 weights cast once
+    model = cast_params_for_serving(cli.load_model_for_eval(cfg, ckpt, DEVICE))
+    times, buckets, cases = stage_times(cfg, model, testset)
+    decode = greedy_graphs_vs_eager(model, cases, "bf16 serving")
+    times.update(decode=decode["mean"]["graphed"]["ms"], decode_eager=decode["mean"]["eager"]["ms"],
+                 decode_eager_every_step=decode["mean"]["eager_k1"]["ms"])
     result = dict(per=per, accuracy=acc, utterances=len(testset), cli_wall_s=wall,
-                  launches=launches, ms_per_utterance=times,
+                  launches=launches, cli_graphs=cli_graphs, ms_per_utterance=times,
                   buckets=[{"dsp_samples": d, "frames": f} for d, f in buckets],
                   dsp_profile=profile_dsp(testset))
     record["serving"] = result
+    record["greedy_graphs"] = decode
     log(f"serving {json.dumps(result)}")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    if launches != GREEDY_LAUNCHES:
+        raise AssertionError(f"the greedy run's kernel launches moved: {launches}, "
+                             f"expected {GREEDY_LAUNCHES} (no kernel sits in a graph)")
+    if cli_graphs["runners"] != 1 or cli_graphs["replays"] == 0:
+        raise AssertionError(f"the CLI's greedy decode did not run through its graphs: {cli_graphs}")
     if not 0.0 <= per < float("inf"):
         raise AssertionError(f"PER is not a finite rate: {per}")
     return launches
@@ -736,7 +888,7 @@ def whole_path_kernels_vs_plain(argv, ckpt, record, record_key="whole_path_f32")
     testset = EMGDataset(cfg, test=True, device=DEVICE)
     model = cli.load_model_for_eval(cfg, ckpt, DEVICE)
     worst = {"features": 0.0, "signal": 0.0, "edge_rel": 0.0, "memory": 0.0}
-    differing = []
+    differing, cases = [], []
     for i in range(len(testset)):
         buf, n, n_before, n_after = utterance_input(testset, i)
         x = torch.as_tensor(buf, device=DEVICE)
@@ -746,6 +898,7 @@ def whole_path_kernels_vs_plain(argv, ckpt, record, record_key="whole_path_f32")
             dk = preprocess_emg(x, n, n_before, n_after)
             mk, _, mask = encode_batch(model, pb, max_frames)
             ok, _ = greedy_loop(model, mk, mask, cap, steps)
+            cases.append((mk, mask, cap, steps))
             with plain[0], plain[1]:
                 dp = preprocess_emg(x, n, n_before, n_after)
                 mp, _, _ = encode_batch(model, pb, max_frames)
@@ -777,7 +930,8 @@ def whole_path_kernels_vs_plain(argv, ckpt, record, record_key="whole_path_f32")
                 margin = first_divergence_margin(model, mk, mask, ok, op)
             differing.append({"utterance": i, "margin": margin})
             log(f"whole path: utterance {i} greedy tokens differ; logit margin {margin}")
-    result = dict(utterances=len(testset), worst=worst, differing=differing)
+    result = dict(utterances=len(testset), worst=worst, differing=differing,
+                  graphs_vs_eager=greedy_graphs_vs_eager(model, cases, f"{record_key}, float32"))
     record[record_key] = result
     log(f"whole path kernels vs plain (float32) {json.dumps(result)}")
     if not (worst["features"] <= DSP_TOL["features"] and worst["signal"] <= DSP_TOL["signal"]
@@ -832,8 +986,10 @@ def beam_cli(argv, ckpt, arpa, out_dir, record, cli_extra=(), key="beam_cli",
                    "--output_directory", out_dir, *cli_extra]
     iir_scan.launches = 0
     flash_attention_relpos.launches = 0
+    runners = []
     t0 = time.perf_counter()
-    final = cli.main(full)
+    with runners_built(runners):
+        final = cli.main(full)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"iir_scan": iir_scan.launches,
@@ -848,6 +1004,7 @@ def beam_cli(argv, ckpt, arpa, out_dir, record, cli_extra=(), key="beam_cli",
         lines = [line for line in f if line.startswith("Prediction:")]
     predicted = [line[len("Prediction:"):].split(" ---> ")[0].split() for line in lines]
     result = dict(wer=final, utterances=len(lines), cli_wall_s=wall, launches=launches,
+                  cli_graphs=runners_summary(runners),
                   decode=dict(BeamWidth=cfg.decode.BeamWidth, compute_dtype=cfg.decode.compute_dtype,
                               batch_utterances=cfg.decode.batch_utterances,
                               beam_scan=cfg.decode.beam_scan),
@@ -858,6 +1015,8 @@ def beam_cli(argv, ckpt, arpa, out_dir, record, cli_extra=(), key="beam_cli",
         raise AssertionError(f"the beam path's kernels are not {kernels}: {launches}")
     if not 0.0 <= final < float("inf"):
         raise AssertionError(f"WER is not a finite rate: {final}")
+    if result["cli_graphs"]["replays"] == 0:
+        raise AssertionError(f"the beam CLI's search did not run through its graphs: {result['cli_graphs']}")
     if not lines or any(w not in vocabulary for words in predicted for w in words):
         raise AssertionError(f"a prediction holds a word outside the lexicon: {predicted}")
     return launches
@@ -890,50 +1049,48 @@ def serving_model(cfg, ckpt):
     return cast_params_for_serving(model) if model.dtype == torch.bfloat16 else model
 
 
-def searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len):
+def searchers_for(cfg, model, tree, dlm, max_frames, target_len, cache: dict) -> dict:
+    """The three searchers (``decode_runners``) of the CLI's geometry group
+    for an utterance, one set per (max_frames, step cap), as the CLI keeps
+    one searcher per group."""
     from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher
 
     step_cap = 16 * ((target_len + cfg.decode.extra_steps + 15) // 16)
-    return DeviceBeamSearcher(model, tree, dlm, cfg.decode, max_frames, max_steps=step_cap)
+    if (max_frames, step_cap) not in cache:
+        cache[max_frames, step_cap] = decode_runners(model, lambda **kw: DeviceBeamSearcher(
+            model, tree, dlm, cfg.decode, max_frames, max_steps=step_cap, **kw))
+    return cache[max_frames, step_cap]
 
 
 def timed_search(searcher, pb, target_len):
     """One search of one utterance, its encode and its step loop each
-    synchronized and timed; the loop runs under CUDA's sync debug mode,
-    which warns at every operation that waits for the card. Returns
-    (encode ms, loop ms, steps, host reads, state)."""
-    import warnings
-
+    synchronized and timed, the loop under the sync debug mode
+    (``counted_reads``). Returns (encode ms, loop ms, steps, host reads,
+    (state, cross K/V, mask, max_len), the winner and the finished scores
+    read from the state)."""
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         kvs, mask = searcher._stack_ctx([searcher._make_ctx(pb)])
         max_len = torch.tensor([target_len + searcher.cfg.extra_steps], device=DEVICE)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                st, steps = searcher.run(kvs, mask, max_len)
-                torch.cuda.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        t2 = time.perf_counter()
-    reads = sum("synchroniz" in str(w.message) for w in caught)
-    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, steps, reads, (st, kvs, mask, max_len)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        st, loop_ms, reads = counted_reads(lambda: searcher.run(kvs, mask, max_len))
+        # read now: a graphed searcher's next search overwrites its state
+        best, fin_scores = searcher._best(st), st["fin_scores"].cpu().numpy()
+    return enc_ms, loop_ms, int(st["t"]), reads, (st, kvs, mask, max_len), best, fin_scores
 
 
 def profile_beam_step(searcher, ctx, t: int = 4) -> dict:
-    """One warm beam step at position t under torch.profiler: the card's busy
-    ms, the kernels it launched, its unprofiled and profiled wall, the five
-    longest device entries, and the LM's part (``cond_logp`` at this step's
-    inputs, traced on its own)."""
+    """One warm beam step at position t, run eagerly, under torch.profiler:
+    the card's busy ms, the kernels it launched, its unprofiled and
+    profiled wall, the five longest device entries, and the LM's part
+    (``cond_logp`` at this step's inputs, traced on its own)."""
     _, kvs, mask, max_len = ctx
     with torch.inference_mode():
-        st = searcher._init_state(1)
-        for i in range(t):
-            st = searcher._step(st, i, kvs, mask, max_len)
+        st = searcher._init_state(kvs, mask, max_len)
+        for _ in range(t):
+            st = searcher._step(st)
         seen = []
         real = searcher.lm.cond_logp
 
@@ -941,10 +1098,10 @@ def profile_beam_step(searcher, ctx, t: int = 4) -> dict:
             seen.append((c, w))
             return real(c, w)
         with mock.patch.object(searcher.lm, "cond_logp", record_inputs):
-            searcher._step(st, t, kvs, mask, max_len)
+            searcher._step(st)
 
         def step():
-            searcher._step(st, t, kvs, mask, max_len)
+            searcher._step(st)
             torch.cuda.synchronize()
 
         def lm_call():
@@ -975,40 +1132,57 @@ def profile_beam_step(searcher, ctx, t: int = 4) -> dict:
 
 def beam_timings(argv, ckpt, arpa, record):
     """Per-utterance encode and search over the test split at the CLI's
-    defaults, warm (the second of two passes); the host reads per step;
-    one step under the profiler."""
+    defaults, warm (the second of two passes), three ways
+    (``decode_runners``): ms, steps, ms per step, host reads per step;
+    each way's finished scores and words must be equal. One eager step and
+    one graph replay under the profiler."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.data.dataset import EMGDataset
 
     cfg, tree, dlm, words = beam_setup(argv, arpa)
     testset = EMGDataset(cfg, test=True, device=DEVICE)
     model = serving_model(cfg, ckpt)
-    rows, ctx, searcher = [], None, None
+    rows, ctx, cache = [], None, {}
     for i in range(len(testset)):
         pb, max_frames, raw = cli.prepare_single(cfg, testset, i)
         target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
-        searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
-        for _ in range(2):  # the second pass is warm
-            enc_ms, loop_ms, steps, reads, ctx = timed_search(searcher, pb, target_len)
-        _, score, found = searcher._format(*[a[0] for a in searcher._best(ctx[0])])
-        rows.append(dict(utterance=i, frames=max_frames, max_len=target_len + cfg.decode.extra_steps,
-                         encode_ms=enc_ms, search_ms=loop_ms, steps=steps,
-                         ms_per_step=loop_ms / steps, host_reads=reads,
-                         host_reads_per_step=reads / steps, score=score, words=found))
-        log(f"beam utterance {json.dumps(rows[-1])}")
-    result = dict(
-        utterances=rows,
-        mean=dict(encode_ms=float(np.mean([r["encode_ms"] for r in rows])),
-                  search_ms=float(np.mean([r["search_ms"] for r in rows])),
-                  steps=float(np.mean([r["steps"] for r in rows])),
-                  ms_per_step=float(np.mean([r["ms_per_step"] for r in rows])),
-                  host_reads_per_step=float(np.mean([r["host_reads_per_step"] for r in rows]))),
-        H=searcher.H, K=searcher.K, W=searcher.W,
-        step_profile=profile_beam_step(searcher, ctx))
+        group = searchers_for(cfg, model, tree, dlm, max_frames, target_len, cache)
+        row, results = dict(utterance=i, frames=max_frames,
+                            max_len=target_len + cfg.decode.extra_steps), {}
+        for name, searcher in group.items():
+            for _ in range(2):  # the second pass is warm
+                enc_ms, loop_ms, steps, reads, ctx, best, fin = timed_search(searcher, pb, target_len)
+            results[name] = (best, fin)
+            row[name] = dict(encode_ms=enc_ms, search_ms=loop_ms, steps=steps,
+                             ms_per_step=loop_ms / steps, host_reads=reads,
+                             host_reads_per_step=reads / steps, blocks=searcher.runner.blocks)
+        _, score, found = group["graphed"]._format(*[a[0] for a in results["graphed"][0]])
+        row.update(score=score, words=found, equal=all(
+            np.array_equal(results["graphed"][1], results[name][1])
+            and all(np.array_equal(a, b) for a, b in zip(results["graphed"][0], results[name][0]))
+            for name in ("eager", "eager_k1")))
+        row["extra_steps_graphed"] = row["graphed"]["blocks"] * group["graphed"].runner.k - row["graphed"]["steps"]
+        rows.append(row)
+        log(f"beam utterance {json.dumps(row)}")
+    mean = {name: {key: float(np.mean([r[name][key] for r in rows]))
+                   for key in ("encode_ms", "search_ms", "steps", "ms_per_step", "host_reads_per_step")}
+            for name in ("graphed", "eager", "eager_k1")}
+    for name in ("graphed", "eager", "eager_k1"):
+        mean[name]["median_ms_per_step"] = float(np.median([r[name]["ms_per_step"] for r in rows]))
+    mean["extra_steps_graphed"] = float(np.mean([r["extra_steps_graphed"] for r in rows]))
+    graphed = [g["graphed"] for g in cache.values()]
+    result = dict(utterances=rows, mean=mean, H=graphed[0].H, K=graphed[0].K, W=graphed[0].W,
+                  step_profile=profile_beam_step(group["eager"], ctx),
+                  graphs=graph_report(graphed[0].runner),
+                  capture_s=[c.capture_s for g in graphed for c in g.runner.graphs.values()],
+                  pool_MB=[c.pool_bytes / 2**20 for g in graphed for c in g.runner.graphs.values()])
     record["beam_timings"] = result
     log(f"beam per-utterance means {json.dumps(result['mean'])}")
-    if any(r["host_reads"] > r["steps"] for r in rows):
-        raise AssertionError(f"a beam step read more than its one flag from the card: {rows}")
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"the beam through the graphs differs from the eager loop: {rows}")
+    if any(r[name]["host_reads"] > r[name]["blocks"] for r in rows
+           for name in ("graphed", "eager", "eager_k1")):
+        raise AssertionError(f"a beam loop read the card more than once a block: {rows}")
     if any(w not in words for r in rows for w in r["words"]):
         raise AssertionError("a search emitted a word outside the lexicon")
 
@@ -1064,21 +1238,34 @@ def beam_lexicon_scale(argv, ckpt, root, record):
     model = serving_model(cfg, ckpt)
     pb, max_frames, raw = cli.prepare_single(cfg, testset, 0)
     target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
-    searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
-    for _ in range(2):
-        enc_ms, loop_ms, steps, reads, ctx = timed_search(searcher, pb, target_len)
-    _, score, found = searcher._format(*[a[0] for a in searcher._best(ctx[0])])
+    group = searchers_for(cfg, model, tree, dlm, max_frames, target_len, {})
+    runs = {}
+    for name in ("graphed", "eager"):
+        for _ in range(2):
+            runs[name] = timed_search(group[name], pb, target_len)
+    searcher = group["graphed"]
+    enc_ms, loop_ms, steps, reads, ctx, best, fin = runs["graphed"]
+    _, score, found = searcher._format(*[a[0] for a in best])
+    e_best, e_fin = runs["eager"][5:]
+    equal = np.array_equal(fin, e_fin) and all(np.array_equal(a, b) for a, b in zip(best, e_best))
     result = dict(words=len(words), tree_nodes=int(tree.child_table.shape[0]), K=searcher.K,
                   H=searcher.H, W=searcher.W,
                   ngrams=[int((t.keys[:, 0] >= 0).sum()) for t in dlm.tables],
                   table_slots=[t.size for t in dlm.tables],
                   setup_s=setup_s, encode_ms=enc_ms, search_ms=loop_ms, steps=steps,
                   ms_per_step=loop_ms / steps, host_reads=reads, score=score,
-                  emitted=len(found), step_profile=profile_beam_step(searcher, ctx))
+                  emitted=len(found), graphed_equals_eager=equal,
+                  eager=dict(search_ms=runs["eager"][1], steps=runs["eager"][2],
+                             ms_per_step=runs["eager"][1] / runs["eager"][2],
+                             host_reads=runs["eager"][3]),
+                  step_profile=profile_beam_step(group["eager"], ctx),
+                  graphs=graph_report(searcher.runner))
     record["beam_lexicon_scale"] = result
     log(f"beam at lexicon scale {json.dumps(result)}")
-    if searcher.K != 3 or reads > steps:
+    if searcher.K != 3 or reads > searcher.runner.blocks:
         raise AssertionError(f"the lexicon-scale search is not as set up: {result}")
+    if not equal:
+        raise AssertionError("the lexicon-scale search through the graphs differs from the eager loop")
     if any(w not in words for w in found):
         raise AssertionError("the lexicon-scale search emitted a word outside the lexicon")
 
@@ -1091,10 +1278,9 @@ def beam_divergence(searcher, ctx_a, ctx_b, max_len):
     the finished buffers differ. None if the searches never differ."""
     W = searcher.W
     with torch.inference_mode():
-        a, b = searcher._init_state(1), searcher._init_state(1)
+        a, b = searcher._init_state(*ctx_a, max_len), searcher._init_state(*ctx_b, max_len)
         for t in range(searcher.S - 1):
-            a = searcher._step(a, t, *ctx_a, max_len)
-            b = searcher._step(b, t, *ctx_b, max_len)
+            a, b = searcher._step(a), searcher._step(b)
             rows = (a["hist"][0, :W] != b["hist"][0, :W]).any(dim=1) & a["alive"][0, :W]
             if bool(rows.any()):
                 i = int(rows.int().argmax())
@@ -1119,6 +1305,8 @@ def beam_kernels_vs_plain(argv, ckpt, arpa, record, n: int = 2):
     cfg, tree, dlm, _ = beam_setup(argv, arpa, ["--decode.compute_dtype", "float32"])
     model = serving_model(cfg, ckpt)
 
+    cache = {}
+
     def contexts():
         """Per utterance: its searcher, search context and max_len."""
         testset = EMGDataset(cfg, test=True, device=DEVICE)
@@ -1126,7 +1314,7 @@ def beam_kernels_vs_plain(argv, ckpt, arpa, record, n: int = 2):
         for i in range(n):
             pb, max_frames, raw = cli.prepare_single(cfg, testset, i)
             target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
-            searcher = searcher_for(cfg, model, tree, dlm, pb, max_frames, target_len)
+            searcher = searchers_for(cfg, model, tree, dlm, max_frames, target_len, cache)["graphed"]
             with torch.inference_mode():
                 ctx = searcher._stack_ctx([searcher._make_ctx(pb)])
             max_len = torch.tensor([target_len + cfg.decode.extra_steps], device=DEVICE)
@@ -1134,7 +1322,7 @@ def beam_kernels_vs_plain(argv, ckpt, arpa, record, n: int = 2):
         return out
 
     def search(searcher, ctx, max_len):
-        st, _ = searcher.run(*ctx, max_len)
+        st = searcher.run(*ctx, max_len)
         return searcher._format(*[a[0] for a in searcher._best(st)])
 
     kernels = contexts()

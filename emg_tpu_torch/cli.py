@@ -92,18 +92,26 @@ def evaluate_saved_greedy_search(cfg: Config, device="cuda"):
     """Greedy PER of the checkpoint at ``paths.evaluate_saved_greedy_search``
     over the test split. Returns (PER, token accuracy in percent)."""
     from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.graphs import LoopRunner
     from emg_tpu_torch.decode.greedy import run_greedy
     from emg_tpu_torch.text.metrics import wer
+    from emg_tpu_torch.utils.serving import cast_params_for_serving
 
     testset = EMGDataset(cfg, test=True, device=device)
     model = load_model_for_eval(cfg, cfg.paths.evaluate_saved_greedy_search, device)
+    if model.dtype == torch.bfloat16:
+        # cast the per-use float32 -> bfloat16 weights once, outside the
+        # decode loop, as the beam path does (numerics unchanged)
+        model = cast_params_for_serving(model)
+    # one runner for the pass: a CUDA graph per (B, S, T) geometry
+    runner = LoopRunner(model)
     references, predictions = [], []
     running_total = running_correct = 0
     for i in range(len(testset)):
         pb, max_frames, raw = prepare_single(cfg, testset, i)
         S_true = int(raw["phonemes_int_lengths"][0])
         strings, matrix = run_greedy(
-            model, pb, max_frames, S_true - 1, pb.targets.shape[1] - 1,
+            model, pb, max_frames, S_true - 1, pb.targets.shape[1] - 1, runner=runner,
         )
         y = np.asarray(raw["phonemes_int"][0], np.int64)[None, :S_true]
         matrix = matrix[:1, :S_true]

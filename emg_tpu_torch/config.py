@@ -73,7 +73,8 @@ class DataConfig:
     # 0 disables caching
     cache_bytes: int = 2 << 30
     # DSP execution path of the JAX package ("auto" / "device" / "scipy").
-    # The port always runs its DSP on the dataset's device.
+    # The port runs its DSP on the dataset's device; "scipy" raises
+    # NotImplementedError until the host DSP is ported.
     dsp_backend: str = "auto"
 
 

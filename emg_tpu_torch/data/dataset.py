@@ -93,6 +93,9 @@ class EMGDataset:
         no_normalizers: bool = False,
         device="cuda",
     ):
+        if config.data.dsp_backend == "scipy":
+            raise NotImplementedError("data.dsp_backend='scipy' (the host scipy DSP, "
+                                      "emg_tpu/dsp/host_dsp.py) is not yet ported")
         self.config = config
         self.device = resolve_device(device)
         dcfg = config.data

@@ -4,11 +4,13 @@ Counterpart of ``emg_tpu/decode/device_beam.py``. The whole search runs on
 the device: decoder steps, prefix-tree masking/stepping, word-boundary LM
 expansion with the device hash-table LM (``decode/device_lm.py``), length
 penalties, and the finished-hypothesis buffer. The JAX package compiles it
-into one ``lax.while_loop`` (and vmaps that over utterances); here a
-Python loop launches each step's tensor ops, and the step body is written
-once over a leading utterance axis U: ``search`` is U = 1 and
-``search_many`` is U = ``len(batches)``, and both give the same result for
-an utterance.
+into one ``lax.while_loop`` (and vmaps that over utterances); here the step
+is a body on a state of tensors that carries its position ``t`` on the
+device, and ``decode/graphs.py::LoopRunner`` runs it: on the card as one
+CUDA graph of k steps per utterance count U, replayed; on the CPU (or with
+``graphed=False``) eagerly. The step body is written once over a leading
+utterance axis U: ``search`` is U = 1 and ``search_many`` is U =
+``len(batches)``, and both give the same result for an utterance.
 
 Semantics carried over from the JAX package:
 
@@ -22,15 +24,19 @@ Semantics carried over from the JAX package:
 - expansion rows share their parent's history (parent = row mod W), so
   only the first W rows of each lane run through ``decode_step``;
 - the previous step's row selection reorders the K/V caches at the start
-  of the next step, by ``index_select`` on the row axis (exact; the JAX
-  package's one-hot matmul is exact too).
+  of the next step, by ``index_select`` on the row axis into the other of
+  two cache buffers (exact; the JAX package's one-hot matmul is exact
+  too), so an even k ends each block with the caches where it began.
 
-``beam_scan="early_exit"`` stops the loop once no lane can make progress,
-reading one flag from the device per step (as ``decode/greedy.py`` does);
-``"static"`` runs all S-1 steps with no read. Nothing else in a step
-synchronizes with the host. Score arithmetic is float32 (the host
-``BeamSearcher`` accumulates float64), which can reorder near-tied
-hypotheses.
+``t`` advances only while the loop's condition holds: for
+``beam_scan="early_exit"`` JAX's while condition (some lane can still make
+progress), for ``"static"`` its scan's length (S-1 steps). A step behind a
+failed condition is inert: every row is gated dead, so the finished buffer
+does not change. ``early_exit`` reads one flag per k steps; ``"static"``
+runs ceil((S-1)/k) blocks and reads nothing. Nothing else in a step
+synchronizes with the host, and the final ``t`` is the number of steps the
+search ran. Score arithmetic is float32 (the host ``BeamSearcher``
+accumulates float64), which can reorder near-tied hypotheses.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 from emg_tpu_torch.config import DecodeConfig
 from emg_tpu_torch.data.batching import PackedBatch
 from emg_tpu_torch.decode.device_lm import DeviceLM
+from emg_tpu_torch.decode.graphs import READ_EVERY, LoopRunner
 from emg_tpu_torch.decode.greedy import encode_batch
 from emg_tpu_torch.decode.prefix_tree import CompiledTree
 from emg_tpu_torch.text.phonemes import PAD_ID, START_ID
@@ -60,7 +67,11 @@ def top_k_stable(x: torch.Tensor, k: int):
 class DeviceBeamSearcher:
     def __init__(self, model, tree: CompiledTree, device_lm: DeviceLM,
                  cfg: DecodeConfig, max_frames: int, max_steps: int = 64,
-                 max_words: int = None, finished_size: int = 64):
+                 max_words: int = None, finished_size: int = 64,
+                 read_every: int = READ_EVERY, graphed: bool = True):
+        """``read_every`` is the runner's k; ``graphed=False`` runs the
+        step loop eagerly on the card too, for a comparison with the
+        graphs."""
         if not cfg.Constrained:
             raise ValueError("the device beam requires lexicon constraints")
         if cfg.quantize_int8:
@@ -75,6 +86,7 @@ class DeviceBeamSearcher:
             model = cast_params_for_serving(model)
         self.model = model
         self.device = model.device
+        self.runner = LoopRunner(model, read_every, graphed)
         if device_lm.device != self.device:
             raise ValueError(f"the LM's tables are on {device_lm.device}, the model on {self.device}")
         self.cfg = cfg
@@ -127,9 +139,13 @@ class DeviceBeamSearcher:
                for i in range(len(ctxs[0][0]))]
         return kvs, torch.cat([c[1] for c in ctxs])
 
-    def _init_state(self, U: int) -> dict:
-        """Fresh search state for U utterances."""
+    def _init_state(self, cross_kvs, src_mask, max_len: torch.Tensor, old=None) -> dict:
+        """Fresh search state for U utterances (``src_mask``: (U, T)): the
+        inputs (cross K/V, source mask, ``max_len`` (U,) int64), t = 0, and
+        the hypotheses. ``old``, a state of the same U, lends its caches,
+        zeroed (its spare buffer is overwritten before it is read)."""
         S, H, F, MW, W = self.S, self.H, self.F, self.MW, self.W
+        U = src_mask.shape[0]
         dev = self.device
 
         def full(shape, value, dtype):
@@ -139,8 +155,15 @@ class DeviceBeamSearcher:
         hist[:, :, 0] = START_ID
         alive = full((U, H), False, torch.bool)
         alive[:, 0] = True
-        k_all, v_all = self.model.init_decode_cache(U * W, S)
+        if old is None:
+            k_all, v_all = self.model.init_decode_cache(U * W, S)
+            k_alt, v_alt = torch.empty_like(k_all), torch.empty_like(v_all)
+        else:
+            k_all, v_all = old["k_all"].zero_(), old["v_all"].zero_()
+            k_alt, v_alt = old["k_alt"], old["v_alt"]
         return dict(
+            cross_kvs=cross_kvs, src_mask=src_mask, max_len=max_len,
+            t=full((), 0, torch.int64), done=full((), False, torch.bool),
             hist=hist, cum=full((U, H), 0.0, torch.float32),
             node=full((U, H), self.root, torch.int64), alive=alive,
             ctx=self.lm.initial_ctx((U, H)), runlm=full((U, H), 0.0, torch.float32),
@@ -149,33 +172,48 @@ class DeviceBeamSearcher:
             fin_scores=full((U, F), NEG, torch.float32),
             fin_hist=full((U, F, S), PAD_ID, torch.int64),
             fin_words=full((U, F, MW), -1, torch.int64), fin_wc=full((U, F), 0, torch.int64),
-            k_all=k_all, v_all=v_all,
+            k_all=k_all, v_all=v_all, k_alt=k_alt, v_alt=v_alt,
             # the previous step's cache row selection, applied at the next
             psel=torch.arange(U * W, device=dev),
         )
 
-    def _step(self, st: dict, t: int, cross_kvs, src_mask, max_len: torch.Tensor) -> dict:
-        """One beam step at position t for all U lanes; returns the new state."""
+    def _progress(self, alive: torch.Tensor, t: torch.Tensor, max_len: torch.Tensor):
+        """The loop's condition at position t: JAX's while condition (some
+        lane has a live row before its max_len) for early exit, the scan's
+        length for static."""
+        go = t < self.S - 1
+        if self.cfg.beam_scan == "early_exit":
+            go = go & (alive & (t < max_len)[:, None]).any()
+        return go
+
+    def _step(self, st: dict) -> dict:
+        """One beam step at position st["t"] for all U lanes; returns the
+        new state."""
         model, cfg, lm = self.model, self.cfg, self.lm
         S, W, K, F, MW = self.S, self.W, self.K, self.F, self.MW
         end_tok = self.phone_count
         wt = cfg.LMWeight
+        t, max_len = st["t"], st["max_len"]
         U = st["cum"].shape[0]
         lanes = torch.arange(U, device=self.device)[:, None]
 
         def take(x, idx):  # per-lane row gather: x (U, R, ...), idx (U, N)
             return x[lanes, idx]
 
-        # a lane past its max_len is inert from here on
-        alive = st["alive"] & (t < max_len)[:, None]
+        # a lane past its max_len, and every lane after the last step, is
+        # inert from here on
+        go = self._progress(st["alive"], t, max_len)
+        alive = st["alive"] & (t < max_len)[:, None] & (t < S - 1)
         hist, cum, node = st["hist"], st["cum"], st["node"]
 
-        # apply the previous step's beam reorder to the K/V caches
-        k_all = st["k_all"].index_select(1, st["psel"])
-        v_all = st["v_all"].index_select(1, st["psel"])
+        # apply the previous step's beam reorder to the K/V caches, into the
+        # other buffer of each pair
+        k_all = torch.index_select(st["k_all"], 1, st["psel"], out=st["k_alt"])
+        v_all = torch.index_select(st["v_all"], 1, st["psel"], out=st["v_alt"])
         tokens = hist[:, :W].reshape(U * W, S)
-        logits = model.decode_step(tokens[:, t], t, (k_all, v_all), cross_kvs, tokens, src_mask,
-                                   pe_period=W)
+        token_in = tokens.index_select(1, t.reshape(1))[:, 0]
+        logits = model.decode_step(token_in, t, (k_all, v_all), st["cross_kvs"], tokens,
+                                   st["src_mask"], pe_period=W)
         step_lp_w = torch.log_softmax(logits[:, :-2], dim=-1).reshape(U, W, -1)  # (U, W, 41)
         step_lp = step_lp_w[:, self.parent]  # (U, H, 41)
         n_cls = step_lp.shape[-1]
@@ -218,8 +256,7 @@ class DeviceBeamSearcher:
         ended = valid & (tok == end_tok)
         fin_add = (new_runlm + eos_cond
                    + (new_chars.float() + 1.0) ** cfg.FinalLengthPenalty) * wt
-        steps = torch.full_like(new_cum, float(t + 1))
-        fin_score = torch.where(ended, (new_cum + fin_add) / steps, NEG)
+        fin_score = torch.where(ended, (new_cum + fin_add) / (t + 1).to(new_cum.dtype), NEG)
         # merge into the finished buffer (top-F by score)
         fin_scores, top_idx = top_k_stable(torch.cat([st["fin_scores"], fin_score], dim=1), F)
         fin_hist = take(torch.cat([st["fin_hist"], new_hist], dim=1), top_idx)
@@ -242,38 +279,40 @@ class DeviceBeamSearcher:
         def flat2(base, exp):  # stack [base; k-major expansions]
             return torch.cat([base, exp.reshape((U, K * W) + exp.shape[3:])], dim=1)
 
+        alive = flat2(active, has)
+        t_next = t + go.long()
         return dict(
+            st,
+            t=t_next, done=~self._progress(alive, t_next, max_len),
             hist=new_hist.repeat(1, 1 + K, 1),
             cum=flat2(new_cum, new_cum[:, None] + add),
             node=torch.cat([new_node, torch.full_like(wid.reshape(U, K * W), self.root)], dim=1),
-            alive=flat2(active, has),
+            alive=alive,
             ctx=flat2(new_ctx, lm.shift_ctx(ctx_b, lm_w)),
             runlm=flat2(new_runlm, runlm_k),
             chars=flat2(new_chars, chars_k),
             wc=flat2(new_wc, (new_wc[:, None] + 1).expand(U, K, W)),
             words=flat2(new_words, w_upd),
             fin_scores=fin_scores, fin_hist=fin_hist, fin_words=fin_words, fin_wc=fin_wc,
-            k_all=k_all, v_all=v_all,
+            k_all=k_all, v_all=v_all, k_alt=st["k_all"], v_alt=st["v_all"],
             # the selected hypothesis hsel's prefix K/V live in cache row
             # hsel % W of its lane (expansion rows shared their parent's)
             psel=((hsel % W) + lanes * W).reshape(U * W),
         )
 
     @torch.inference_mode()
-    def run(self, cross_kvs, src_mask, max_len: torch.Tensor):
+    def run(self, cross_kvs, src_mask, max_len: torch.Tensor) -> dict:
         """Run the step loop over U utterances (``max_len``: (U,) int64 on
-        the device) to completion. Returns (final state, steps run)."""
+        the device) to completion. Returns the final state, whose ``t`` is
+        the number of steps run; on the card it is the runner's static
+        buffers, which the next search of the same U overwrites."""
         U = src_mask.shape[0]
-        st = self._init_state(U)
-        t = 0
-        while t < self.S - 1:
-            if self.cfg.beam_scan == "early_exit" and t > 0:
-                # the one host read of a step: can any lane still progress?
-                if not bool((st["alive"] & (t < max_len)[:, None]).any()):
-                    break
-            st = self._step(st, t, cross_kvs, src_mask, max_len)
-            t += 1
-        return st, t
+        blocks = None
+        if self.cfg.beam_scan == "static":
+            blocks = -(-(self.S - 1) // self.runner.k)
+        return self.runner.run(
+            ("beam", U), lambda old: self._init_state(cross_kvs, src_mask, max_len, old),
+            lambda st: self._step(st), blocks)
 
     def _best(self, st: dict):
         """The winning finished hypothesis of each lane, on the host."""
@@ -299,7 +338,7 @@ class DeviceBeamSearcher:
             ctx_kv, mask = self._stack_ctx([ctxs[id(b)] for b in batches])
             max_len = torch.as_tensor([int(t) + self.cfg.extra_steps for t in target_lens],
                                       dtype=torch.int64, device=self.device)
-            st, _ = self.run(ctx_kv, mask, max_len)
+            st = self.run(ctx_kv, mask, max_len)
             scores, hists, words, wcs = self._best(st)
         return [self._format(scores[u], hists[u], words[u], wcs[u]) for u in range(len(batches))]
 

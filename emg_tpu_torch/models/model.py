@@ -219,7 +219,7 @@ class EMGModel(nn.Module):
     def decode_step(
         self,
         token_ids: torch.Tensor,  # (B,) current input token
-        step: int,  # its position
+        step,  # its position: an int, or a 0-dim int64 tensor on the device
         caches,  # (k_all, v_all), updated in place
         cross_kvs,  # per-layer (cross_k, cross_v)
         tokens: torch.Tensor,  # (B, S) all tokens so far (for PAD masking)
@@ -234,7 +234,13 @@ class EMGModel(nn.Module):
         Under ``decoder_pe="reference_batch"`` row b adds pe[b mod
         pe_period] (default B: pe[b]); a beam over U utterances of W rows
         each passes W, so each utterance's rows see pe[0..W-1] as they do
-        alone."""
+        alone.
+
+        A tensor ``step`` is read only on the device (the cache row written,
+        the causal mask, pe[step]), so a CUDA graph of this step replays at
+        every position; an int is made such a tensor, so both give the same
+        bits."""
+        step = torch.as_tensor(step, dtype=torch.int64, device=token_ids.device)
         x = self._embed_targets(token_ids)[:, None, :]  # (B, 1, D)
         pe = self.pos_decoder.table
         if self.cfg.decoder_pe == "reference_batch":
@@ -243,7 +249,7 @@ class EMGModel(nn.Module):
             period = B if pe_period is None else pe_period
             x = x + (1.0 / self.cfg.model_size) * pe[:period].repeat(B // period, 1)[:, None, :]
         else:
-            x = x + (1.0 / self.cfg.model_size) * pe[step][None, None, :]
+            x = x + (1.0 / self.cfg.model_size) * pe.index_select(0, step.reshape(1))[None]
         out = self.transformerDecoder.decode_step(
             x.to(self.dtype), caches, cross_kvs, step, tokens == PAD_ID,
             token_ids == PAD_ID, memory_pad_mask,

@@ -20,7 +20,10 @@ cast at use.
 over per-layer self-attention K/V caches. The caches are written in place:
 the current token's K/V row lands in the cache before the layer attends
 over it, the same arithmetic as attending over the old rows plus the new
-one.
+one. The step's position is a 0-dim int64 tensor on the device (JAX's
+traced ``s``): the cache write is an ``index_copy_`` and the causal mask
+compares against it, so no host value and no Python branch depends on
+it, and a CUDA graph captured at one position replays at every other.
 """
 
 from __future__ import annotations
@@ -107,17 +110,18 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
         """Project memory into this layer's cross-attention K/V once."""
         return self.multihead_attn.project_kv(memory)
 
-    def decode_step(self, x_tok, k_cache, v_cache, cross_k, cross_v, step: int,
+    def decode_step(self, x_tok, k_cache, v_cache, cross_k, cross_v, step: torch.Tensor,
                     tokens_pad_mask, query_is_pad, memory_padding_mask):
         """x_tok: (B, 1, D); k_cache/v_cache: this layer's (B, H, S, Dh)
-        caches, updated in place at row ``step``; cross_k/cross_v: (U, H,
-        T, Dh) and memory_padding_mask (U, T) for U utterances, U dividing
-        B, rows grouped by utterance."""
+        caches, updated in place at row ``step`` (a 0-dim int64 tensor);
+        cross_k/cross_v: (U, H, T, Dh) and memory_padding_mask (U, T) for U
+        utterances, U dividing B, rows grouped by utterance."""
         cdt = x_tok.dtype
         S = k_cache.shape[2]
         q, k_new, v_new = self.self_attn.project_qkv(x_tok)  # (B, H, 1, Dh)
-        k_cache[:, :, step] = k_new[:, :, 0].to(k_cache.dtype)
-        v_cache[:, :, step] = v_new[:, :, 0].to(v_cache.dtype)
+        row = step.reshape(1)
+        k_cache.index_copy_(2, row, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(2, row, v_new.to(v_cache.dtype))
         valid = torch.arange(S, device=x_tok.device)[None, :] <= step  # causal
         sa = self.self_attn.attend_step(
             q, k_cache, v_cache, valid, tokens_pad_mask, query_is_pad,
@@ -177,10 +181,11 @@ class TransformerDecoder(nn.Module):
     def project_cross_kvs(self, memory):
         return [layer.project_cross_kv(memory) for layer in self.layers]
 
-    def decode_step(self, x_tok, caches, cross_kvs, step: int, tokens_pad_mask,
+    def decode_step(self, x_tok, caches, cross_kvs, step: torch.Tensor, tokens_pad_mask,
                     query_is_pad, memory_padding_mask):
         """caches: (k_all, v_all), each (L, B, H, S, Dh) stacked over layers
-        and updated in place. Returns the (B, 1, D) output."""
+        and updated in place at row ``step`` (a 0-dim int64 tensor).
+        Returns the (B, 1, D) output."""
         k_all, v_all = caches
         for i, layer in enumerate(self.layers):
             ck, cv = cross_kvs[i]

@@ -15,8 +15,11 @@ JAX trainer's default), which the step dequantizes on the device; eval and
 PER batches stay float32, as in the JAX package. The JAX trainer's fused
 accumulation windows and prefetch threads are XLA dispatch devices that
 compute the same math; here each microbatch is its own step
-(``train.fused_window=True`` raises). ``--resume`` continues from the epoch
-after the one saved in ``latest``.
+(``train.fused_window=True`` raises). The port trains on one device: a
+mesh wider than one (``parallel.data_axis`` not -1 or 1,
+``parallel.model_axis`` not 1) and ``parallel.coordinator_address`` raise
+too. ``--resume`` continues from the epoch after the one saved in
+``latest``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from emg_tpu_torch.data.batching import (
 )
 from emg_tpu_torch.data.dataset import EMGDataset
 from emg_tpu_torch.data.sampler import DynamicBatchSampler
+from emg_tpu_torch.decode.graphs import LoopRunner
 from emg_tpu_torch.decode.greedy import run_greedy
 from emg_tpu_torch.models.model import EMGModel
 from emg_tpu_torch.parallel.train_step import make_eval_step, make_train_step
@@ -65,6 +69,14 @@ class Trainer:
                                       "(per-microbatch steps compute the same math)")
         if config.parallel.sequence_shard:
             raise NotImplementedError("sequence_shard is not yet ported")
+        par = config.parallel
+        if par.data_axis not in (-1, 1) or par.model_axis != 1:
+            raise NotImplementedError(
+                f"a device mesh (parallel.data_axis={par.data_axis}, parallel.model_axis="
+                f"{par.model_axis}) is not yet ported: the port trains on one device")
+        if par.coordinator_address:
+            raise NotImplementedError("parallel.coordinator_address (multi-process training) "
+                                      "is not yet ported")
         self.config = config
         self.device = resolve_device(device)
         self.trainset = trainset
@@ -118,6 +130,8 @@ class Trainer:
     def report_PER(self, state: TrainState, train_sampler, dev_sampler, epoch: int,
                    batch_idx: int) -> float:
         model = state.model.eval()
+        # the live float32 model; its graphs live for this report only
+        runner = LoopRunner(model)
 
         def decode_set(dataset, sampler, max_batches=None):
             preds, refs, correct, total = [], [], 0, 0
@@ -125,7 +139,7 @@ class Trainer:
                 pb, max_frames, raw = self._prepare(dataset, idxs)
                 S_true = int(max(raw["phonemes_int_lengths"]))
                 strings, matrix = run_greedy(model, pb, max_frames, S_true - 1,
-                                             pb.targets.shape[1] - 1)
+                                             pb.targets.shape[1] - 1, runner=runner)
                 B = len(idxs)
                 y = np.full((B, S_true), 42, np.int64)
                 for b, p in enumerate(raw["phonemes_int"]):

@@ -11,6 +11,8 @@ and an order-3 ARPA trained on a few sentences. Float32 on both sides.
 - ``search_many`` equals ``search`` per utterance, and ``beam_scan``
   "early_exit" equals "static", under both ``decoder_pe`` modes (the
   reference_batch one adds pe[row mod W] per decode row).
+- At k = 1 and k = 4 steps between reads of the device, "early_exit"
+  equals "static" and JAX's search (as above); "static" reads nothing.
 - The host ``BeamSearcher`` (float64 scores) against JAX ``BeamSearcher``.
 - ``cast_params_for_serving``: at bfloat16 the cast-once weights give
   bitwise the logits of the per-use casts, and leave the model as it was.
@@ -127,6 +129,47 @@ def test_device_beam_matches_jax(lexicon_lm):
             print(f"seed {seed}: the searches differ; the two winners' scores differ by {margin}")
             assert margin < 1e-5, (seed, jw, tw, js, ts)
     assert finished >= 5, "the searches rarely finished; the test's setup is too tight"
+    assert agree >= len(seeds) - 1
+
+
+@pytest.fixture(scope="module")
+def jax_beam(lexicon_lm):
+    """The JAX device beam at W = 16; its weights are an argument of its
+    search program, so swapping them reuses one compilation."""
+    jm, v, _ = make_models(11)
+    return JaxDeviceBeamSearcher(jm, v, lexicon_lm["jax_tree"], lexicon_lm["jax_dlm"],
+                                 JaxDecodeConfig(BeamWidth=16, extra_steps=12), MAX_FRAMES,
+                                 max_steps=MAX_STEPS)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_read_cadence_matches_static_and_jax(lexicon_lm, jax_beam, k):
+    cfg = DecodeConfig(BeamWidth=16, extra_steps=12)
+    seeds = [11, 13, 15]
+    agree = 0
+    for seed in seeds:
+        jm, v, tm = make_models(seed)
+        jax_beam.variables = v
+        (b,), (L,) = batches([seed])
+        early, static = (
+            DeviceBeamSearcher(tm, lexicon_lm["port_tree"], lexicon_lm["port_dlm"], c, MAX_FRAMES,
+                               max_steps=MAX_STEPS, read_every=k)
+            for c in (cfg, dataclasses.replace(cfg, beam_scan="static")))
+        eh, es, ew = early.search(as_port(b), L)
+        sh, ss, sw = static.search(as_port(b), L)
+        assert list(eh) == list(sh) and ew == sw
+        assert es == pytest.approx(ss, abs=1e-5)
+        # static runs ceil((S-1)/k) blocks and reads nothing; early exit
+        # reads once a block
+        assert static.runner.reads == 0 and static.runner.blocks == -(-MAX_STEPS // k)
+        assert early.runner.reads == early.runner.blocks <= static.runner.blocks
+        jh, js, jw = jax_beam.search(b, L)
+        if list(jh) == list(eh) and jw == ew and es == pytest.approx(js, abs=1e-4):
+            agree += 1
+        else:
+            print(f"seed {seed}: the searches differ; the two winners' scores differ by "
+                  f"{abs(es - js)}")
+            assert abs(es - js) < 1e-5, (seed, jw, ew, js, es)
     assert agree >= len(seeds) - 1
 
 
