@@ -78,7 +78,21 @@ Phases, in order; any failure exits non-zero:
      first passes launched it with; one float32 microbatch (B=32, T=384,
      dropout 0) with the unfused transformer attention against the fused
      kernels (losses, encoder rows, gradients, each layer's attention at
-     the model's inputs against float64) and each variant's device ms.
+     the model's inputs against float64) and each variant's device ms;
+ 11. the beam's remainder: greedy serving through the CLI with
+     --quantize_int8 true (K1 and K2 launches as phase 5's; the decoder's
+     weight bytes int8 against bf16; layer 0's dequantized weights on the
+     card bitwise the CPU's; warm greedy decode through the graphs with
+     the int8 and the bf16 model on each test utterance, ms and strings,
+     the first divergence margin where they differ); the beam CLI with
+     --quantize_int8 true (finite WER, lexicon words) and one graph replay
+     int8 against bf16 (device ms and kernels a step); search_from_raw on
+     each test utterance's raw signal against the packed path of the same
+     DSP (equal history, words and score; ms; K1 and K2 launches); the
+     beam CLI with --continuous_lanes 4 (words and launches equal to phase
+     9's lock-step run), then all test utterances at one geometry,
+     lock-step (8 a launch) against 4 lanes: ms, utterances/s, equal
+     words, advances, refills, host reads an advance.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -87,6 +101,7 @@ measurement to a JSON file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import contextlib
 import glob
 import json
@@ -183,6 +198,15 @@ def call_ms(fn, iters: int = 20) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def timed_sync(fn):
+    """fn() on the host clock around synchronized work: (its result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(bytes_moved: float, flops: float, peak: float):
@@ -626,13 +650,6 @@ def stage_times(cfg, model, testset):
     from emg_tpu_torch.decode.greedy import encode_batch
     from emg_tpu_torch.dsp.pipeline import preprocess_emg
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     totals = {"dsp": [], "encode": []}
     buckets, cases = [], []
     for i in range(len(testset)):
@@ -642,8 +659,8 @@ def stage_times(cfg, model, testset):
         S_true = int(example["phonemes_int_lengths"][0])
         with torch.inference_mode():
             for _ in range(2):  # the second pass is warm
-                _, dsp_ms = timed(lambda: preprocess_emg(x, n, n_before, n_after))
-                (mem, _, mask), enc_ms = timed(lambda: encode_batch(model, pb, max_frames))
+                _, dsp_ms = timed_sync(lambda: preprocess_emg(x, n, n_before, n_after))
+                (mem, _, mask), enc_ms = timed_sync(lambda: encode_batch(model, pb, max_frames))
         totals["dsp"].append(dsp_ms)
         totals["encode"].append(enc_ms)
         buckets.append((buf.shape[0], max_frames))
@@ -2046,6 +2063,306 @@ def recipes_phase(argv, root, record):
     print(json.dumps({"recipes": summary}, default=str), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the beam's remainder (int8 decoder weights, search_from_raw,
+# continuous lanes)
+# ---------------------------------------------------------------------------
+
+def int8_weights(model) -> dict:
+    from emg_tpu_torch.utils.quantize import Int8Weight
+
+    return {name: m for name, m in model.named_modules() if isinstance(m, Int8Weight)}
+
+
+def int8_greedy(argv, ckpt, record) -> dict:
+    """Greedy serving with --quantize_int8 true through the CLI (K1 and K2
+    launches over that run alone, as phase 5's); the decoder's weight
+    bytes int8 against bf16; layer 0's dequantized weights on the card
+    against the CPU, bitwise; per test utterance, warm greedy decode
+    through the graphs with the int8 and the bf16 model from one encoder
+    memory (the encoder is not quantized): ms, and the first divergence
+    margin where the strings differ."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.graphs import LoopRunner
+    from emg_tpu_torch.decode.greedy import encode_batch, greedy_loop
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
+    from emg_tpu_torch.ops.iir_scan import iir_scan
+    from emg_tpu_torch.utils.quantize import Int8Weight
+
+    full = argv + ["--device", DEVICE, "--evaluate_saved_greedy_search", ckpt, "--quantize_int8", "true"]
+    iir_scan.launches = 0
+    flash_attention_relpos.launches = 0
+    runners = []
+    with runners_built(runners):
+        per, acc = cli.main(full)
+    launches = {"iir_scan": iir_scan.launches, "flash_attention_relpos": flash_attention_relpos.launches}
+    logging.getLogger().handlers.clear()
+
+    cfg = Config.from_args(argv)
+    bf16 = serving_model(cfg, ckpt)
+    int8 = serving_model(Config.from_args(argv + ["--quantize_int8", "true"]), ckpt)
+    weights = int8_weights(int8)
+    layer0 = {n: w for n, w in weights.items() if ".layers.0." in n}
+    dequant_equal = all(torch.equal(w.dequantize().cpu(), Int8Weight(
+        w.data.cpu(), w.scale.cpu(), w.dequant_dtype).dequantize()) for w in layer0.values())
+    weight_bytes = dict(
+        count=len(weights),
+        bf16=sum(bf16.get_parameter(n).nbytes for n in weights),
+        int8=sum(w.data.nbytes for w in weights.values()),
+        scales=sum(w.scale.nbytes for w in weights.values()))
+
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    runner = {"bf16": LoopRunner(bf16), "int8": LoopRunner(int8)}
+    rows = []
+    for i in range(len(testset)):
+        pb, max_frames, example = cli.prepare_single(cfg, testset, i)
+        cap, steps = pb.targets.shape[1] - 1, int(example["phonemes_int_lengths"][0]) - 1
+        row, outs = dict(utterance=i), {}
+        with torch.inference_mode():
+            mem, _, mask = encode_batch(bf16, pb, max_frames)
+            for name, model in (("bf16", bf16), ("int8", int8)):
+                for _ in range(2):  # the second run is warm
+                    (out, _), ms = timed_sync(lambda: greedy_loop(model, mem, mask, cap, steps,
+                                                                  runner=runner[name]))
+                outs[name] = out.cpu().numpy()[0]
+                row[f"{name}_ms"] = ms
+            row["equal"] = bool(np.array_equal(outs["bf16"], outs["int8"]))
+            if not row["equal"]:
+                row["margin"] = first_divergence_margin(bf16, mem, mask, outs["bf16"], outs["int8"])
+        rows.append(row)
+    result = dict(per=per, accuracy=acc, launches=launches, cli_graphs=runners_summary(runners),
+                  weight_bytes=weight_bytes, layer0_dequant_cpu_equals_card=dequant_equal,
+                  layer0_weights=len(layer0), utterances=rows,
+                  greedy_ms=dict(bf16=float(np.mean([r["bf16_ms"] for r in rows])),
+                                 int8=float(np.mean([r["int8_ms"] for r in rows]))),
+                  strings_equal=sum(r["equal"] for r in rows))
+    log(f"int8 greedy {json.dumps(result)}")
+    if launches != GREEDY_LAUNCHES:
+        raise AssertionError(f"the int8 greedy run's kernel launches moved: {launches}")
+    if not (dequant_equal and layer0 and weight_bytes["count"] == 10 * cfg.model.num_layers_decoder):
+        raise AssertionError(f"the int8 weights are not as quantized: {result}")
+    if not 0.0 <= per < float("inf"):
+        raise AssertionError(f"the int8 PER is not a finite rate: {per}")
+    return result
+
+
+def int8_beam(argv, ckpt, arpa, root, record) -> dict:
+    """The beam CLI at W = 100 with --quantize_int8 true (a finite WER,
+    lexicon words, K1 and K2 launched), and one graph replay of the first
+    test utterance's search with the int8 and the bf16 model: device ms a
+    step (CUDA events) and kernels a step (torch.profiler)."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher
+
+    launches = beam_cli(argv, ckpt, arpa, os.path.join(root, "beam_int8"), record,
+                        cli_extra=("--quantize_int8", "true"), key="beam_cli_int8")
+    cfg, tree, dlm, _ = beam_setup(argv, arpa)
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    pb, max_frames, raw = cli.prepare_single(cfg, testset, 0)
+    target_len = int((raw["phonemes_int"][0][1:] != 40).sum())
+    step_cap = 16 * ((target_len + cfg.decode.extra_steps + 15) // 16)
+    steps = {}
+    for name, dc in (("bf16", cfg.decode), ("int8", dataclasses.replace(cfg.decode, quantize_int8=True))):
+        searcher = DeviceBeamSearcher(serving_model(cfg, ckpt), tree, dlm, dc, max_frames,
+                                      max_steps=step_cap)
+        searcher.search(pb, target_len)
+        report = graph_report(searcher.runner)["replay"]
+        steps[name] = dict(device_ms_per_step=report["device_ms_per_step"],
+                           kernels_per_step=report["kernels_per_step"],
+                           longest=report["longest"])
+    result = dict(wer=record["beam_cli_int8"]["wer"], launches=launches, step=steps)
+    log(f"int8 beam {json.dumps(result)}")
+    return result
+
+
+def raw_searches(argv, ckpt, arpa, record) -> dict:
+    """search_from_raw on each test utterance's raw signal (no neighbour
+    context) against the packed path of the same DSP (the DSP on the card,
+    the soft clip, the rows packed on the host, ``search``): the history,
+    words and score must be equal; warm ms of each; K1's and K2's launches
+    over one pass of search_from_raw alone."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.batching import PackedBatch, bucket_up
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.device_beam import RAW_SAMPLE_BUCKETS, DeviceBeamSearcher
+    from emg_tpu_torch.dsp.features import n_frames
+    from emg_tpu_torch.dsp.pipeline import FEAT_RATE, SOURCE_RATE, preprocess_emg
+    from emg_tpu_torch.dsp.resample import subsample_length
+    from emg_tpu_torch.ops.flash_attention import flash_attention_relpos
+    from emg_tpu_torch.ops.iir_scan import iir_scan
+
+    cfg, tree, dlm, words = beam_setup(argv, arpa)
+    model = serving_model(cfg, ckpt)
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    cases, searchers = [], {}
+    for i in range(len(testset)):
+        directory, idx = testset.example_indices[i]
+        signal = np.load(os.path.join(directory.directory, f"{idx}_emg.npy")).astype(np.float32)
+        _, max_frames, example = cli.prepare_single(cfg, testset, i)
+        target_len = int((example["phonemes_int"][0][1:] != 40).sum())
+        step_cap = 16 * ((target_len + cfg.decode.extra_steps + 15) // 16)
+        if (max_frames, step_cap) not in searchers:
+            searchers[max_frames, step_cap] = DeviceBeamSearcher(model, tree, dlm, cfg.decode,
+                                                                 max_frames, max_steps=step_cap)
+        cases.append((searchers[max_frames, step_cap], signal, target_len))
+
+    def packed_path(searcher, signal, target_len):
+        n, C = signal.shape
+        Tb = bucket_up(n, RAW_SAMPLE_BUCKETS)
+        F_cap = min(n_frames(subsample_length(Tb, FEAT_RATE, SOURCE_RATE)), searcher.max_frames)
+        rows_b = max(1, -(-(8 * F_cap) // 1600))
+        buf = torch.zeros((Tb, C), device=DEVICE)
+        buf[:n] = torch.as_tensor(signal)
+        with torch.inference_mode():
+            out = preprocess_emg(buf, n, 0, 0)
+            F = min(out.n_frames, F_cap)
+            clipped = (50.0 * torch.tanh(out.emg_orig[8 : 8 + 8 * F] / 20.0 / 50.0)).cpu().numpy()
+        flat = np.full((rows_b * 1600, C), 42.0, np.float32)
+        flat[: 8 * F] = clipped
+        batch = PackedBatch(
+            packed_raw=flat.reshape(rows_b, 1600, C), n_rows=np.int32((8 * F + 1599) // 1600),
+            lengths=np.asarray([F], np.int32), offsets=np.zeros(1, np.int32),
+            targets=np.full((1, 1), 42, np.int64), target_lengths=np.ones(1, np.int32),
+            n_examples=np.int32(1))
+        return searcher.search(batch, target_len)
+
+    rows = []
+    for i, (searcher, signal, target_len) in enumerate(cases):
+        row = dict(utterance=i, samples=signal.shape[0], frames=searcher.max_frames)
+        raw_ms, packed_ms = [], []
+        for rep in range(4):  # the first pair warms up; the others alternate
+            runs = [("raw", raw_ms, lambda: searcher.search_from_raw(signal, target_len)),
+                    ("packed", packed_ms, lambda: packed_path(searcher, signal, target_len))]
+            for name, times, fn in (runs if rep % 2 else runs[::-1]):
+                out, ms = timed_sync(fn)
+                times.append(ms)
+                row[name] = out
+        row["raw_ms"], row["packed_ms"] = float(np.median(raw_ms[1:])), float(np.median(packed_ms[1:]))
+        (h1, s1, w1), (h2, s2, w2) = row.pop("raw"), row.pop("packed")
+        row.update(score=s1, words=w1, equal=list(h1) == list(h2) and w1 == w2 and s1 == s2)
+        rows.append(row)
+    iir_scan.launches = 0
+    flash_attention_relpos.launches = 0
+    for searcher, signal, target_len in cases:
+        searcher.search_from_raw(signal, target_len)
+    torch.cuda.synchronize()
+    launches = {"iir_scan": iir_scan.launches, "flash_attention_relpos": flash_attention_relpos.launches}
+    result = dict(utterances=rows, launches=launches,
+                  raw_ms=float(np.mean([r["raw_ms"] for r in rows])),
+                  packed_ms=float(np.mean([r["packed_ms"] for r in rows])))
+    log(f"search_from_raw {json.dumps(result)}")
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"search_from_raw differs from the packed path: {rows}")
+    if not (launches["iir_scan"] > 0 and launches["flash_attention_relpos"] > 0):
+        raise AssertionError(f"search_from_raw did not launch K1 and K2: {launches}")
+    if any(w not in words for r in rows for w in r["words"]):
+        raise AssertionError("search_from_raw emitted a word outside the lexicon")
+    return result
+
+
+def continuous_lanes(argv, ckpt, arpa, root, record, lanes: int = 4) -> dict:
+    """The beam CLI with --continuous_lanes: words per utterance equal to
+    the lock-step CLI run of phase 9, and the same K1 and K2 launches.
+    Then all test utterances at one geometry (the largest frame bucket and
+    step cap among them), warm: lock-step (``search_many``, the CLI's 8 a
+    launch) against ``lanes`` continuous lanes of 16 steps an advance:
+    ms, utterances/s, equal words; advances, refills, fetches, and host
+    reads per advance under CUDA's sync debug mode, less the encodes'
+    (counted on their own: their uploads)."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.decode.continuous import ContinuousBeamServer
+    from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher
+
+    launches = beam_cli(argv, ckpt, arpa, os.path.join(root, "beam_continuous"), record,
+                        cli_extra=("--continuous_lanes", str(lanes)), key="beam_cli_continuous")
+    lockstep_words = record["beam_cli"]["predictions"]
+    words_equal = record["beam_cli_continuous"]["predictions"] == lockstep_words
+
+    cfg, tree, dlm, _ = beam_setup(argv, arpa)
+    model = serving_model(cfg, ckpt)
+    testset = EMGDataset(cfg, test=True, device=DEVICE)
+    prepared = []
+    for i in range(len(testset)):
+        pb, max_frames, raw = cli.prepare_single(cfg, testset, i)
+        prepared.append((pb, max_frames, int((raw["phonemes_int"][0][1:] != 40).sum())))
+    max_frames = max(p[1] for p in prepared)
+    step_cap = max(16 * ((L + cfg.decode.extra_steps + 15) // 16) for _, _, L in prepared)
+    # the same batches at the common frame bucket
+    searcher = DeviceBeamSearcher(model, tree, dlm, cfg.decode, max_frames, max_steps=step_cap)
+    pbs, lens = [p[0] for p in prepared], [p[2] for p in prepared]
+    server = ContinuousBeamServer(searcher, lanes=lanes)
+    # an odd chunk: two graphs replayed in turn, the caches never copied
+    odd = ContinuousBeamServer(searcher, lanes=lanes, chunk=3)
+    with torch.inference_mode():
+        _, _, encode_reads = counted_reads(lambda: [searcher._make_ctx(pb) for pb in pbs])
+    for _ in range(2):  # the second run is warm
+        lock, lock_ms, lock_reads = counted_reads(lambda: searcher.search_many(pbs, lens))
+        before = (server.advances, server.fetches, server.refills)
+        cont, cont_ms, cont_reads = counted_reads(lambda: server.serve(list(zip(pbs, lens))))
+        odd_out, odd_ms = timed_sync(lambda: odd.serve(list(zip(pbs, lens))))
+    advances, fetches, refills = (after - b for after, b in
+                                  zip((server.advances, server.fetches, server.refills), before))
+    n = len(pbs)
+    result = dict(cli_words_equal=words_equal, cli_launches=launches,
+                  lockstep_cli_launches=record["beam_cli"]["launches"],
+                  geometry=dict(max_frames=max_frames, step_cap=step_cap, utterances=n, lanes=lanes,
+                                chunk=server.chunk),
+                  lockstep=dict(ms=lock_ms, utterances_per_s=n / lock_ms * 1e3, host_reads=lock_reads),
+                  continuous=dict(ms=cont_ms, utterances_per_s=n / cont_ms * 1e3, host_reads=cont_reads,
+                                  advances=advances, fetches=fetches, refills=refills,
+                                  encode_reads=encode_reads,
+                                  host_reads_per_advance=(cont_reads - encode_reads) / advances),
+                  words_equal=[a[2] == b[2] for a, b in zip(lock, cont)],
+                  odd_chunk=dict(chunk=odd.chunk, ms=odd_ms, advances=odd.advances // 2,
+                                 equal=[a[2] == b[2] for a, b in zip(cont, odd_out)],
+                                 score_diff=max([abs(a[1] - b[1]) for a, b in zip(cont, odd_out)
+                                                 if np.isfinite(a[1]) and np.isfinite(b[1])],
+                                                default=0.0)),
+                  captures=[dict(geometry=str(key), capture_s=c.capture_s, pool_MB=c.pool_bytes / 2**20,
+                                 graphs=1 + (c.other is not None))
+                            for key, c in searcher.runner.graphs.items()])
+    log(f"continuous lanes {json.dumps(result)}")
+    if not words_equal or not all(result["words_equal"]) or not all(result["odd_chunk"]["equal"]):
+        raise AssertionError(f"continuous lanes differ from the lock-step run: {result}")
+    odd_graphs = [c["graphs"] for c in result["captures"] if c["geometry"] == str(("continuous", lanes, 3))]
+    if odd_graphs != [2]:
+        raise AssertionError(f"an odd chunk did not run as two graphs in turn: {result['captures']}")
+    if launches != record["beam_cli"]["launches"]:
+        raise AssertionError(f"the continuous CLI run's K1/K2 launches moved: {launches}")
+    # one read of the done flags an advance, one fetch an advance with a
+    # finished lane, one upload of the first lanes' max_len
+    if cont_reads - encode_reads > advances + fetches + 1 or refills != n - lanes:
+        raise AssertionError(f"the continuous server read the card more than it should: {result}")
+    return result
+
+
+def beam_remainder(argv, ckpt, root, record):
+    t0 = time.perf_counter()
+    arpa = os.path.join(root, "lm.arpa")  # phase 9's
+    result = dict(int8_greedy=int8_greedy(argv, ckpt, record),
+                  int8_beam=int8_beam(argv, ckpt, arpa, root, record),
+                  search_from_raw=raw_searches(argv, ckpt, arpa, record),
+                  continuous=continuous_lanes(argv, ckpt, arpa, root, record))
+    result["phase_s"] = time.perf_counter() - t0
+    record["beam_remainder"] = result
+    log(f"phase 11 took {result['phase_s']:.1f} s")
+    summary = dict(
+        weight_bytes=result["int8_greedy"]["weight_bytes"],
+        greedy_ms=result["int8_greedy"]["greedy_ms"],
+        greedy_strings_equal=result["int8_greedy"]["strings_equal"],
+        int8_wer=result["int8_beam"]["wer"],
+        beam_step={k: v["device_ms_per_step"] for k, v in result["int8_beam"]["step"].items()},
+        raw_ms=result["search_from_raw"]["raw_ms"], packed_ms=result["search_from_raw"]["packed_ms"],
+        lockstep_utt_s=result["continuous"]["lockstep"]["utterances_per_s"],
+        continuous_utt_s=result["continuous"]["continuous"]["utterances_per_s"],
+        phase_s=result["phase_s"])
+    print(json.dumps({"beam_remainder": summary}, default=str), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2101,6 +2418,8 @@ def main():
         beam_launches = beam_serving(argv, ckpt, root, record)
         log("phase 10: the training recipes")
         recipes_phase(argv, root, record)
+        log("phase 11: the beam's remainder")
+        beam_remainder(argv, ckpt, root, record)
 
     # K1 and K2 count over the greedy serving run (phase 9's JSON holds
     # their counts over the beam run), K3-K5 over the training run

@@ -74,17 +74,21 @@ def prepare_single(cfg: Config, testset, i: int):
 
 def load_model_for_eval(cfg: Config, ckpt_path: str, device="cuda"):
     """The serving model at ``decode.compute_dtype`` (bfloat16 by default;
-    parameters stay float32) with the checkpoint's weights, in eval mode."""
+    parameters stay float32) with the checkpoint's weights, in eval mode.
+    With ``decode.quantize_int8`` the decoder's matmul weights are int8,
+    quantized from the float32 weights (``utils/quantize.py``), which
+    covers greedy decoding too, as in the JAX package."""
     from emg_tpu_torch.models.model import EMGModel
     from emg_tpu_torch.train.checkpoint import load_weights
+    from emg_tpu_torch.utils.quantize import quantize_decoder_int8
 
-    if cfg.decode.quantize_int8:
-        raise NotImplementedError("--decode.quantize_int8 is not yet ported")
     model = EMGModel(
         dataclasses.replace(cfg.model, compute_dtype=cfg.decode.compute_dtype),
         device=device,
     )
     model.load_state_dict(load_weights(ckpt_path), strict=True)
+    if cfg.decode.quantize_int8:
+        model = quantize_decoder_int8(model)
     return model.eval()
 
 
@@ -134,7 +138,9 @@ def evaluate_saved_beam_search(cfg: Config, device="cuda"):
     over the test split (``emg_tpu/cli.py::evaluate_saved_beam_search``):
     the device beam (``decode/device_beam.py``) by default, the host beam
     (``decode/beam.py``) for ``Constrained=false``, ``device_beam=false``
-    or a KenLM binary LM. Returns the final WER."""
+    or a KenLM binary LM. With ``decode.continuous_lanes`` > 0 the device
+    beam serves each geometry group of more than one utterance through
+    ``decode/continuous.py::ContinuousBeamServer``. Returns the final WER."""
     from emg_tpu_torch.data.dataset import EMGDataset
     from emg_tpu_torch.decode.beam import BeamSearcher
     from emg_tpu_torch.decode.kenlm_binary import is_kenlm_binary
@@ -145,9 +151,6 @@ def evaluate_saved_beam_search(cfg: Config, device="cuda"):
 
     dc = cfg.decode
     use_device = dc.device_beam and dc.Constrained
-    if use_device and dc.continuous_lanes > 0:
-        raise NotImplementedError("--decode.continuous_lanes > 0 (decode/continuous.py) "
-                                  "is not yet ported")
     testset = EMGDataset(cfg, test=True, device=device)
     model = load_model_for_eval(cfg, cfg.paths.evaluate_saved_beam_search, device)
     tree = init_tree(cfg.paths.phonesSet, cfg.paths.vocabulary, cfg.paths.dict)
@@ -208,6 +211,15 @@ def evaluate_saved_beam_search(cfg: Config, device="cuda"):
                 searchers[max_frames, step_cap] = DeviceBeamSearcher(
                     model, compiled, dlm, dc, max_frames, max_steps=step_cap)
             searcher = searchers[max_frames, step_cap]
+            if dc.continuous_lanes > 0 and len(idxs) > 1:
+                # one lane pool per geometry group, refilled from its queue
+                from emg_tpu_torch.decode.continuous import ContinuousBeamServer
+
+                server = ContinuousBeamServer(searcher, lanes=min(dc.continuous_lanes, len(idxs)))
+                outs = server.serve([(prepared[i][0], prepared[i][2]) for i in idxs])
+                for i, out in zip(idxs, outs):
+                    words_by_idx[i] = out[2]
+                continue
             for c0 in range(0, len(idxs), CH):
                 chunk = idxs[c0 : c0 + CH]
                 if len(chunk) == 1:

@@ -1,8 +1,7 @@
 """Decoding: greedy search (KV-cached or over the full prefix), the prefix
 tree and n-gram LMs, and the lexicon-constrained beam searches (on the card
-and on the host), their loops run by ``graphs.LoopRunner``. Counterpart of
-``emg_tpu/decode``; the JAX package's ``ContinuousBeamServer`` is not
-ported."""
+and on the host), their loops run by ``graphs.LoopRunner``, and the
+continuous-batching beam server. Counterpart of ``emg_tpu/decode``."""
 
 from emg_tpu_torch.decode.graphs import LoopRunner  # noqa: F401
 from emg_tpu_torch.decode.greedy import greedy_decode, greedy_decode_cached, run_greedy  # noqa: F401
@@ -11,3 +10,4 @@ from emg_tpu_torch.decode.ngram import ArpaLanguageModel, load_language_model, w
 from emg_tpu_torch.decode.beam import BeamSearcher, run_single_bs  # noqa: F401
 
 from emg_tpu_torch.decode.device_beam import DeviceBeamSearcher  # noqa: F401
+from emg_tpu_torch.decode.continuous import ContinuousBeamServer  # noqa: F401

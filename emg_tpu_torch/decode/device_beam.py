@@ -5,12 +5,18 @@ the device: decoder steps, prefix-tree masking/stepping, word-boundary LM
 expansion with the device hash-table LM (``decode/device_lm.py``), length
 penalties, and the finished-hypothesis buffer. The JAX package compiles it
 into one ``lax.while_loop`` (and vmaps that over utterances); here the step
-is a body on a state of tensors that carries its position ``t`` on the
-device, and ``decode/graphs.py::LoopRunner`` runs it: on the card as one
-CUDA graph of k steps per utterance count U, replayed; on the CPU (or with
-``graphed=False``) eagerly. The step body is written once over a leading
-utterance axis U: ``search`` is U = 1 and ``search_many`` is U =
-``len(batches)``, and both give the same result for an utterance.
+is a body on a state of tensors that carries each lane's position ``t``
+((U,) on the device), and ``decode/graphs.py::LoopRunner`` runs it: on the
+card as one CUDA graph of k steps per utterance count U, replayed; on the
+CPU (or with ``graphed=False``) eagerly. The step body is written once over
+a leading utterance (lane) axis U: ``search`` is U = 1 and ``search_many``
+is U = ``len(batches)``, both with every lane at one ``t`` (lock-step), and
+both give the same result for an utterance. ``decode/continuous.py`` runs
+the same body with each lane at its own ``t`` (``lockstep=False``).
+``search_from_raw`` starts from the raw 1 kHz signal: the device DSP, the
+soft clip and the row packing of the JAX package's ``_build_raw``, then
+``search``. With ``cfg.quantize_int8`` the decoder's matmul weights are
+int8 (``utils/quantize.py``), quantized after the serving cast, as in JAX.
 
 Semantics carried over from the JAX package:
 
@@ -28,14 +34,16 @@ Semantics carried over from the JAX package:
   two cache buffers (exact; the JAX package's one-hot matmul is exact
   too), so an even k ends each block with the caches where it began.
 
-``t`` advances only while the loop's condition holds: for
+In lock-step, ``t`` advances only while the loop's condition holds: for
 ``beam_scan="early_exit"`` JAX's while condition (some lane can still make
 progress), for ``"static"`` its scan's length (S-1 steps). A step behind a
 failed condition is inert: every row is gated dead, so the finished buffer
 does not change. ``early_exit`` reads one flag per k steps; ``"static"``
 runs ceil((S-1)/k) blocks and reads nothing. Nothing else in a step
 synchronizes with the host, and the final ``t`` is the number of steps the
-search ran. Score arithmetic is float32 (the host ``BeamSearcher``
+search ran. With ``lockstep=False`` each lane's ``t`` advances while that
+lane can make progress (JAX's ``_carry_done`` is false) and then stays, so
+that no position reaches S (JAX clamps its cache write there). Score arithmetic is float32 (the host ``BeamSearcher``
 accumulates float64), which can reorder near-tied hypotheses.
 """
 
@@ -47,14 +55,21 @@ import numpy as np
 import torch
 
 from emg_tpu_torch.config import DecodeConfig
-from emg_tpu_torch.data.batching import PackedBatch
+from emg_tpu_torch.data.batching import PAD_VALUE, PackedBatch, bucket_up
 from emg_tpu_torch.decode.device_lm import DeviceLM
 from emg_tpu_torch.decode.graphs import READ_EVERY, LoopRunner
 from emg_tpu_torch.decode.greedy import encode_batch
 from emg_tpu_torch.decode.prefix_tree import CompiledTree
+from emg_tpu_torch.dsp.features import n_frames as frames_of
+from emg_tpu_torch.dsp.pipeline import FEAT_RATE, SOURCE_RATE, preprocess_emg
+from emg_tpu_torch.dsp.resample import subsample_length
 from emg_tpu_torch.text.phonemes import PAD_ID, START_ID
 
 NEG = float("-inf")
+
+# raw 1 kHz sample-count buckets of search_from_raw (the JAX package's);
+# 1280 samples = 1.28 s, the shortest corpus utterances
+RAW_SAMPLE_BUCKETS = [1280, 1920, 2560, 3840, 5120, 7680, 10240, 15360]
 
 
 def top_k_stable(x: torch.Tensor, k: int):
@@ -74,8 +89,6 @@ class DeviceBeamSearcher:
         graphs."""
         if not cfg.Constrained:
             raise ValueError("the device beam requires lexicon constraints")
-        if cfg.quantize_int8:
-            raise NotImplementedError("--decode.quantize_int8 is not yet ported")
         if cfg.beam_scan not in ("early_exit", "static"):
             raise ValueError(f"unknown beam_scan {cfg.beam_scan!r}")
         if model.dtype == torch.bfloat16:
@@ -84,6 +97,12 @@ class DeviceBeamSearcher:
             from emg_tpu_torch.utils.serving import cast_params_for_serving
 
             model = cast_params_for_serving(model)
+        if cfg.quantize_int8:
+            # int8 storage for the decoder's per-step weight reads, after
+            # the cast as in JAX (a no-op on a model already quantized)
+            from emg_tpu_torch.utils.quantize import quantize_decoder_int8
+
+            model = quantize_decoder_int8(model)
         self.model = model
         self.device = model.device
         self.runner = LoopRunner(model, read_every, graphed)
@@ -139,13 +158,9 @@ class DeviceBeamSearcher:
                for i in range(len(ctxs[0][0]))]
         return kvs, torch.cat([c[1] for c in ctxs])
 
-    def _init_state(self, cross_kvs, src_mask, max_len: torch.Tensor, old=None) -> dict:
-        """Fresh search state for U utterances (``src_mask``: (U, T)): the
-        inputs (cross K/V, source mask, ``max_len`` (U,) int64), t = 0, and
-        the hypotheses. ``old``, a state of the same U, lends its caches,
-        zeroed (its spare buffer is overwritten before it is read)."""
-        S, H, F, MW, W = self.S, self.H, self.F, self.MW, self.W
-        U = src_mask.shape[0]
+    def _hypotheses(self, U: int) -> dict:
+        """U lanes' fresh hypotheses and finished buffers, at t = 0."""
+        S, H, F, MW = self.S, self.H, self.F, self.MW
         dev = self.device
 
         def full(shape, value, dtype):
@@ -155,15 +170,8 @@ class DeviceBeamSearcher:
         hist[:, :, 0] = START_ID
         alive = full((U, H), False, torch.bool)
         alive[:, 0] = True
-        if old is None:
-            k_all, v_all = self.model.init_decode_cache(U * W, S)
-            k_alt, v_alt = torch.empty_like(k_all), torch.empty_like(v_all)
-        else:
-            k_all, v_all = old["k_all"].zero_(), old["v_all"].zero_()
-            k_alt, v_alt = old["k_alt"], old["v_alt"]
         return dict(
-            cross_kvs=cross_kvs, src_mask=src_mask, max_len=max_len,
-            t=full((), 0, torch.int64), done=full((), False, torch.bool),
+            t=full((U,), 0, torch.int64),
             hist=hist, cum=full((U, H), 0.0, torch.float32),
             node=full((U, H), self.root, torch.int64), alive=alive,
             ctx=self.lm.initial_ctx((U, H)), runlm=full((U, H), 0.0, torch.float32),
@@ -172,23 +180,71 @@ class DeviceBeamSearcher:
             fin_scores=full((U, F), NEG, torch.float32),
             fin_hist=full((U, F, S), PAD_ID, torch.int64),
             fin_words=full((U, F, MW), -1, torch.int64), fin_wc=full((U, F), 0, torch.int64),
-            k_all=k_all, v_all=v_all, k_alt=k_alt, v_alt=v_alt,
-            # the previous step's cache row selection, applied at the next
-            psel=torch.arange(U * W, device=dev),
         )
 
-    def _progress(self, alive: torch.Tensor, t: torch.Tensor, max_len: torch.Tensor):
-        """The loop's condition at position t: JAX's while condition (some
-        lane has a live row before its max_len) for early exit, the scan's
-        length for static."""
-        go = t < self.S - 1
-        if self.cfg.beam_scan == "early_exit":
-            go = go & (alive & (t < max_len)[:, None]).any()
-        return go
+    def _init_state(self, cross_kvs, src_mask, max_len: torch.Tensor, old=None) -> dict:
+        """Fresh search state for U utterances (``src_mask``: (U, T)): the
+        inputs (cross K/V, source mask, ``max_len`` (U,) int64), t = 0, and
+        the hypotheses. ``old``, a state of the same U, lends its caches,
+        zeroed (its spare buffer is overwritten before it is read)."""
+        U = src_mask.shape[0]
+        if old is None:
+            k_all, v_all = self.model.init_decode_cache(U * self.W, self.S)
+            k_alt, v_alt = torch.empty_like(k_all), torch.empty_like(v_all)
+        else:
+            k_all, v_all = old["k_all"].zero_(), old["v_all"].zero_()
+            k_alt, v_alt = old["k_alt"], old["v_alt"]
+        return dict(
+            cross_kvs=cross_kvs, src_mask=src_mask, max_len=max_len,
+            done=torch.zeros((), dtype=torch.bool, device=self.device),
+            **self._hypotheses(U),
+            k_all=k_all, v_all=v_all, k_alt=k_alt, v_alt=v_alt,
+            # the previous step's cache row selection, applied at the next
+            psel=torch.arange(U * self.W, device=self.device),
+        )
 
-    def _step(self, st: dict) -> dict:
-        """One beam step at position st["t"] for all U lanes; returns the
-        new state."""
+    def _refill_lane(self, st: dict, lane: int, ctx, max_len: int) -> None:
+        """Start a new utterance in lane ``lane`` of ``st``, in place:
+        its inputs (``ctx`` from ``_make_ctx``, ``max_len``), fresh
+        hypotheses at t = 0, its cache rows zeroed in the buffer the next
+        step reads, and its cache selection the identity."""
+        kvs, mask = ctx
+        for (k, v), (k1, v1) in zip(st["cross_kvs"], kvs):
+            k[lane].copy_(k1[0])
+            v[lane].copy_(v1[0])
+        st["src_mask"][lane].copy_(mask[0])
+        st["max_len"][lane : lane + 1].fill_(max_len)  # a fill: no upload, no sync
+        for name, value in self._hypotheses(1).items():
+            st[name][lane].copy_(value[0])
+        rows = slice(lane * self.W, (lane + 1) * self.W)
+        st["k_all"][:, rows].zero_()
+        st["v_all"][:, rows].zero_()
+        st["psel"][rows].copy_(torch.arange(rows.start, rows.stop, device=self.device))
+
+    def _live(self, alive: torch.Tensor, t: torch.Tensor, max_len: torch.Tensor) -> torch.Tensor:
+        """Per lane, whether it can still make progress at its position:
+        a row alive before its max_len and before the cache's end (the
+        negation of JAX's ``_carry_done``)."""
+        return (t < self.S - 1) & (alive & (t < max_len)[:, None]).any(dim=1)
+
+    def _progress(self, alive: torch.Tensor, t: torch.Tensor, max_len: torch.Tensor):
+        """The lock-step loop's condition: JAX's while condition (some
+        lane can make progress) for early exit, the scan's length for
+        static."""
+        if self.cfg.beam_scan == "early_exit":
+            return self._live(alive, t, max_len).any()
+        return (t < self.S - 1).any()
+
+    def lanes_done(self, st: dict) -> torch.Tensor:
+        """(U,) bool on the device: the lanes that can make no further
+        progress (JAX's ``_carry_done``)."""
+        return ~self._live(st["alive"], st["t"], st["max_len"])
+
+    def _step(self, st: dict, lockstep: bool = True) -> dict:
+        """One beam step of all U lanes, each at its position st["t"];
+        returns the new state. ``lockstep``: every lane at one position,
+        advanced by the loop's condition; else each lane advances while it
+        can make progress."""
         model, cfg, lm = self.model, self.cfg, self.lm
         S, W, K, F, MW = self.S, self.W, self.K, self.F, self.MW
         end_tok = self.phone_count
@@ -200,10 +256,9 @@ class DeviceBeamSearcher:
         def take(x, idx):  # per-lane row gather: x (U, R, ...), idx (U, N)
             return x[lanes, idx]
 
-        # a lane past its max_len, and every lane after the last step, is
-        # inert from here on
-        go = self._progress(st["alive"], t, max_len)
-        alive = st["alive"] & (t < max_len)[:, None] & (t < S - 1)
+        # a lane past its max_len or at the cache's end is inert from here on
+        go = (self._progress if lockstep else self._live)(st["alive"], t, max_len)
+        alive = st["alive"] & ((t < max_len) & (t < S - 1))[:, None]
         hist, cum, node = st["hist"], st["cum"], st["node"]
 
         # apply the previous step's beam reorder to the K/V caches, into the
@@ -211,8 +266,9 @@ class DeviceBeamSearcher:
         k_all = torch.index_select(st["k_all"], 1, st["psel"], out=st["k_alt"])
         v_all = torch.index_select(st["v_all"], 1, st["psel"], out=st["v_alt"])
         tokens = hist[:, :W].reshape(U * W, S)
-        token_in = tokens.index_select(1, t.reshape(1))[:, 0]
-        logits = model.decode_step(token_in, t, (k_all, v_all), st["cross_kvs"], tokens,
+        t_rows = t[:, None].expand(U, W).reshape(U * W)  # each decode row's position
+        token_in = tokens.gather(1, t_rows[:, None])[:, 0]
+        logits = model.decode_step(token_in, t_rows, (k_all, v_all), st["cross_kvs"], tokens,
                                    st["src_mask"], pe_period=W)
         step_lp_w = torch.log_softmax(logits[:, :-2], dim=-1).reshape(U, W, -1)  # (U, W, 41)
         step_lp = step_lp_w[:, self.parent]  # (U, H, 41)
@@ -227,7 +283,7 @@ class DeviceBeamSearcher:
 
         new_cum = take(cum, hsel) + step_lp[lanes, hsel, tok]
         new_hist = take(hist, hsel)
-        new_hist = torch.where(self.positions == t + 1, tok[..., None], new_hist)
+        new_hist = torch.where(self.positions == (t + 1)[:, None, None], tok[..., None], new_hist)
         node_sel = take(node, hsel)
         new_node = torch.where(
             tok == end_tok, node_sel,
@@ -256,7 +312,7 @@ class DeviceBeamSearcher:
         ended = valid & (tok == end_tok)
         fin_add = (new_runlm + eos_cond
                    + (new_chars.float() + 1.0) ** cfg.FinalLengthPenalty) * wt
-        fin_score = torch.where(ended, (new_cum + fin_add) / (t + 1).to(new_cum.dtype), NEG)
+        fin_score = torch.where(ended, (new_cum + fin_add) / (t + 1).to(new_cum.dtype)[:, None], NEG)
         # merge into the finished buffer (top-F by score)
         fin_scores, top_idx = top_k_stable(torch.cat([st["fin_scores"], fin_score], dim=1), F)
         fin_hist = take(torch.cat([st["fin_hist"], new_hist], dim=1), top_idx)
@@ -315,14 +371,52 @@ class DeviceBeamSearcher:
             lambda st: self._step(st), blocks)
 
     def _best(self, st: dict):
-        """The winning finished hypothesis of each lane, on the host."""
-        best = st["fin_scores"].argmax(dim=1)  # the first of equal maxima
+        """The winning finished hypothesis of each lane, on the host, in one
+        fetch: [scores, histories, words, word counts], each (U, ...)."""
+        fin = st["fin_scores"]
+        best = fin.argmax(dim=1)  # the first of equal maxima
         lanes = torch.arange(best.shape[0], device=best.device)
-        return [st[k][lanes, best].cpu().numpy()
-                for k in ("fin_scores", "fin_hist", "fin_words", "fin_wc")]
+        packed = torch.cat([
+            fin[lanes, best].view(torch.int32).long()[:, None], st["fin_hist"][lanes, best],
+            st["fin_words"][lanes, best], st["fin_wc"][lanes, best][:, None],
+        ], dim=1).cpu().numpy()
+        scores = packed[:, 0].astype(np.int32).view(np.float32)
+        return [scores, packed[:, 1 : 1 + self.S], packed[:, 1 + self.S : -1], packed[:, -1]]
 
-    def search_from_raw(self, raw: np.ndarray, target_len_tokens: int):
-        raise NotImplementedError("DeviceBeamSearcher.search_from_raw is not yet ported")
+    def pack_raw(self, raw: np.ndarray) -> PackedBatch:
+        """The packed rows of the raw 1 kHz signal ((n, C), no neighbour
+        context), built on the device as JAX's ``_build_raw``: the signal
+        padded to its raw-sample bucket Tb, the device DSP (K1), the soft
+        clip 50·tanh(x/20/50) of emg_orig rows [8, 8+8F), packed into
+        ceil(8·F_cap/1600) rows of 1600, padded with 42.0, where F_cap is
+        the most frames a Tb-sample signal gives, at most max_frames."""
+        n, C = raw.shape
+        Tb = bucket_up(n, RAW_SAMPLE_BUCKETS)
+        F_cap = min(frames_of(subsample_length(Tb, FEAT_RATE, SOURCE_RATE)), self.max_frames)
+        rows_b = max(1, -(-(8 * F_cap) // 1600))
+        buf = torch.zeros((Tb, C), dtype=torch.float32, device=self.device)
+        buf[:n] = torch.as_tensor(raw, dtype=torch.float32)
+        out = preprocess_emg(buf, n, 0, 0)
+        F = min(out.n_frames, F_cap)
+        clipped = 50.0 * torch.tanh(out.emg_orig / 20.0 / 50.0)
+        pos = torch.arange(rows_b * 1600, device=self.device)
+        src = (pos + 8).clamp(0, clipped.shape[0] - 1)
+        flat = torch.where((pos < 8 * F)[:, None], clipped[src], PAD_VALUE)
+        return PackedBatch(
+            packed_raw=flat.reshape(rows_b, 1600, C), n_rows=np.int32((8 * F + 1599) // 1600),
+            lengths=np.asarray([F], np.int32), offsets=np.zeros(1, np.int32),
+            targets=np.full((1, 1), PAD_ID, np.int64), target_lengths=np.ones(1, np.int32),
+            n_examples=np.int32(1),
+        )
+
+    def search_from_raw(self, raw: np.ndarray, target_len_tokens: int
+                        ) -> Tuple[np.ndarray, float, List[str]]:
+        """``search`` from the raw 1 kHz EMG signal ((n, C) float32, no
+        neighbour context): only the signal is uploaded; DSP, packing
+        (``pack_raw``), encode and the beam run on the device."""
+        with torch.inference_mode():
+            batch = self.pack_raw(raw)
+        return self.search(batch, target_len_tokens)
 
     # ------------------------------------------------------------------
     def search_many(self, batches: List[PackedBatch], target_lens: List[int]):

@@ -24,7 +24,11 @@ A body hands back each of its state's tensors either as the same object
 as a new tensor, which the captured block copies into the static buffer
 after its k-th step. A cache that the body writes into a second buffer each
 step (the beam's ping-pong) is back in its own buffer after an even k, and
-is never copied.
+is never copied. After an odd k the pair has swapped: the block hands back
+each static buffer under its partner's name. The runner then copies
+neither; it captures a second graph of the block from the state with the
+pair's names swapped, and replays the two in turn, so that each block
+starts where the last one ended (``CapturedLoop.replay``).
 
 A runner's graphs read the parameters of the model they were captured on.
 Build one per evaluation pass (a CLI call, a PER report) on the model that
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -65,23 +69,43 @@ def _leaves(x):
 
 def copy_into(static: State, state: State) -> None:
     """Write ``state``'s tensors into ``static``'s, name by name, skipping
-    each that already is the static tensor."""
+    each that already is a static tensor: the same one, or the partner of a
+    ping-pong pair that swapped."""
+    held = {id(t) for value in static.values() for t in _leaves(value)}
     for name, dst in static.items():
         for d, s in zip(_leaves(dst), _leaves(state[name])):
-            if s is not d:
+            if id(s) not in held:
                 d.copy_(s)
+
+
+def _swapped(static: State, state: State) -> State:
+    """The names under which ``state`` holds another name's static tensor:
+    the ping-pong pairs after an odd number of steps."""
+    held = {id(v) for v in static.values() if isinstance(v, torch.Tensor)}
+    return {name: v for name, v in state.items()
+            if isinstance(v, torch.Tensor) and v is not static[name] and id(v) in held}
 
 
 @dataclass
 class CapturedLoop:
     """One geometry's k-step block: its graph, the static state it reads
     and writes, the seconds its first run took to warm up and capture, and
-    the device memory the capture reserved for the shared pool."""
+    the device memory the capture reserved for the shared pool. For an odd
+    k, ``other`` is the (graph, state) captured from the state whose
+    ping-pong pairs are swapped; ``graph`` and ``state`` are always the
+    ones the next block starts from."""
 
     graph: "torch.cuda.CUDAGraph"
     state: State
     capture_s: float
     pool_bytes: int
+    other: Optional[Tuple["torch.cuda.CUDAGraph", State]] = None
+
+    def replay(self) -> None:
+        self.graph.replay()
+        if self.other is not None:
+            # the pairs swapped: the next block starts from the other names
+            self.other, (self.graph, self.state) = (self.graph, self.state), self.other
 
 
 class LoopRunner:
@@ -107,7 +131,8 @@ class LoopRunner:
             raise ValueError("this LoopRunner was built for another model object")
 
     def run(self, key: tuple, init: Callable[[Optional[State]], State],
-            body: Callable[[State], State], blocks: Optional[int] = None) -> State:
+            body: Callable[[State], State], blocks: Optional[int] = None,
+            k: Optional[int] = None) -> State:
         """Run one loop to its end and return its last state.
 
         ``key`` names the geometry: every shape and every Python value the
@@ -115,14 +140,16 @@ class LoopRunner:
         ``old`` is None, or on the graphed path the static state of an
         earlier run of ``key``, which init may refill in place (the caches:
         zeroed) and hand back. ``blocks``: run that many k-step blocks and
-        read nothing; by default read ``done`` after each block. On the
-        graphed path the state returned is the static buffers, which the
-        next run of ``key`` overwrites."""
+        read nothing; by default read ``done`` after each block. ``k``: the
+        steps of a block, for this geometry (``key`` names it too); by
+        default the runner's. On the graphed path the state returned is the
+        static buffers, which the next run of ``key`` overwrites."""
+        k = self.k if k is None else k
         if not (self.graphed and self.model.device.type == "cuda"):
             st = init(None)
             n = 0
             while True:
-                st = self._block(body, st)
+                st = self._block(body, st, k)
                 n += 1
                 if self._finished(st, n, blocks):
                     break
@@ -130,12 +157,12 @@ class LoopRunner:
             return st
         captured = self.graphs.get(key)
         if captured is None:
-            captured = self.graphs[key] = self._capture(init, body)
+            captured = self.graphs[key] = self._capture(init, body, k)
         else:
             copy_into(captured.state, init(captured.state))
         n = 0
         while True:
-            captured.graph.replay()
+            captured.replay()
             self.replays += 1
             n += 1
             if self._finished(captured.state, n, blocks):
@@ -149,17 +176,29 @@ class LoopRunner:
         self.reads += 1
         return bool(st["done"])
 
-    def _block(self, body, st: State) -> State:
-        for _ in range(self.k):
+    @staticmethod
+    def _block(body, st: State, k: int) -> State:
+        for _ in range(k):
             st = body(st)
         return st
 
-    def _capture(self, init, body) -> CapturedLoop:
+    def _capture(self, init, body, k: int) -> CapturedLoop:
         t0 = time.perf_counter()
         static = init(None)
 
-        def block():
-            copy_into(static, self._block(body, static))
+        def block(state: State) -> State:
+            out = self._block(body, state, k)
+            copy_into(state, out)
+            return out
+
+        def capture(state: State) -> "torch.cuda.CUDAGraph":
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._pool)
+            try:
+                block(state)
+            finally:
+                graph.capture_end()
+            return graph
 
         device = self.model.device.index
         if device not in _capture_streams:
@@ -168,24 +207,23 @@ class LoopRunner:
         side.wait_stream(torch.cuda.current_stream())
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
         # warm up and capture on one side stream. Not through
         # ``torch.cuda.graph``, which empties the allocator's cache first:
         # after a trainer's PER report, the next train step would then get
         # all its memory from cudaMalloc again
         with torch.cuda.stream(side):
-            block()
+            swapped = _swapped(static, block(static))
             side.synchronize()
             reserved = torch.cuda.memory_reserved()
-            graph.capture_begin(pool=self._pool)
-            try:
-                block()
-            finally:
-                graph.capture_end()
+            graph = capture(static)
+            other = None
+            if swapped:
+                alt = dict(static, **swapped)
+                other = (capture(alt), alt)
         torch.cuda.current_stream().wait_stream(side)
         # the private pool takes new segments only
         pool_bytes = torch.cuda.memory_reserved() - reserved
         # the warm-up ran the block on the buffers: start the run afresh
         copy_into(static, init(static))
         torch.cuda.synchronize()
-        return CapturedLoop(graph, static, time.perf_counter() - t0, pool_bytes)
+        return CapturedLoop(graph, static, time.perf_counter() - t0, pool_bytes, other)

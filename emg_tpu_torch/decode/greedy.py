@@ -32,12 +32,14 @@ from emg_tpu_torch.text.phonemes import END_ID, PAD_ID, PHONEME_INVENTORY, START
 
 
 def encode_batch(model, batch: PackedBatch, max_frames: int):
-    """Move a host batch to the model's device and run the encoder.
-    Returns (memory, enc_logits, src_pad_mask)."""
+    """Move a batch (numpy arrays, or tensors already on the device) to the
+    model's device and run the encoder. Returns (memory, enc_logits,
+    src_pad_mask)."""
     device = model.device
 
     def t(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a),
+                               dtype=dtype, device=device)
 
     return model.encode(
         t(batch.packed_raw, torch.float32), int(batch.n_rows),

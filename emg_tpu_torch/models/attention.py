@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from emg_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_train
+from emg_tpu_torch.utils.quantize import weight_as
 
 NEG_FILL = -1e8  # reference masked_fill value
 STRUCT_MASK = float("-inf")  # structural (not-yet-generated) positions
@@ -137,21 +138,21 @@ class MultiHeadAttention(nn.Module):
 
     # -- projections -------------------------------------------------------
     def project_q(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("btf,hfa->bhta", x, self.w_q.to(x.dtype))
+        return torch.einsum("btf,hfa->bhta", x, weight_as(self.w_q, x.dtype))
 
     def project_kv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        w = torch.cat([self.w_k, self.w_v], dim=0).to(x.dtype)  # (2H, D, Dh)
+        w = torch.cat([weight_as(self.w_k, x.dtype), weight_as(self.w_v, x.dtype)])  # (2H, D, Dh)
         kv = torch.einsum("btf,hfa->bhta", x, w)
         return kv[:, : self.num_heads], kv[:, self.num_heads :]
 
     def project_qkv(self, x: torch.Tensor):
-        w = torch.cat([self.w_q, self.w_k, self.w_v], dim=0).to(x.dtype)  # (3H, D, Dh)
+        w = torch.cat([weight_as(w, x.dtype) for w in (self.w_q, self.w_k, self.w_v)])  # (3H, D, Dh)
         qkv = torch.einsum("btf,hfa->bhta", x, w)
         H = self.num_heads
         return qkv[:, :H], qkv[:, H : 2 * H], qkv[:, 2 * H :]
 
     def output(self, o: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bhta,haf->btf", o, self.w_o.to(o.dtype))
+        return torch.einsum("bhta,haf->btf", o, weight_as(self.w_o, o.dtype))
 
     # -- full path ---------------------------------------------------------
     def forward(

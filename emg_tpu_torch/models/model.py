@@ -219,7 +219,7 @@ class EMGModel(nn.Module):
     def decode_step(
         self,
         token_ids: torch.Tensor,  # (B,) current input token
-        step,  # its position: an int, or a 0-dim int64 tensor on the device
+        step,  # its position: an int, or an int64 tensor of shape () or (B,)
         caches,  # (k_all, v_all), updated in place
         cross_kvs,  # per-layer (cross_k, cross_v)
         tokens: torch.Tensor,  # (B, S) all tokens so far (for PAD masking)
@@ -239,7 +239,8 @@ class EMGModel(nn.Module):
         A tensor ``step`` is read only on the device (the cache row written,
         the causal mask, pe[step]), so a CUDA graph of this step replays at
         every position; an int is made such a tensor, so both give the same
-        bits."""
+        bits. A (B,) ``step`` puts each row at its own position (the beam's
+        lanes), in [0, S)."""
         step = torch.as_tensor(step, dtype=torch.int64, device=token_ids.device)
         x = self._embed_targets(token_ids)[:, None, :]  # (B, 1, D)
         pe = self.pos_decoder.table
@@ -249,7 +250,7 @@ class EMGModel(nn.Module):
             period = B if pe_period is None else pe_period
             x = x + (1.0 / self.cfg.model_size) * pe[:period].repeat(B // period, 1)[:, None, :]
         else:
-            x = x + (1.0 / self.cfg.model_size) * pe.index_select(0, step.reshape(1))[None]
+            x = x + (1.0 / self.cfg.model_size) * pe.index_select(0, step.reshape(-1))[:, None]
         out = self.transformerDecoder.decode_step(
             x.to(self.dtype), caches, cross_kvs, step, tokens == PAD_ID,
             token_ids == PAD_ID, memory_pad_mask,

@@ -20,10 +20,13 @@ cast at use.
 over per-layer self-attention K/V caches. The caches are written in place:
 the current token's K/V row lands in the cache before the layer attends
 over it, the same arithmetic as attending over the old rows plus the new
-one. The step's position is a 0-dim int64 tensor on the device (JAX's
-traced ``s``): the cache write is an ``index_copy_`` and the causal mask
-compares against it, so no host value and no Python branch depends on
-it, and a CUDA graph captured at one position replays at every other.
+one. The step's position is an int64 tensor on the device (JAX's traced
+``s``), 0-dim (every row at one position, as greedy decoding) or (B,) (one
+position a row, as the beam's lanes, which continuous batching starts at
+different times): the cache write is a ``scatter_`` at each row's position
+and the causal mask compares against it, so no host value and no Python
+branch depends on it, and a CUDA graph captured at one position replays
+at every other. A position must lie in [0, S).
 """
 
 from __future__ import annotations
@@ -33,11 +36,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from emg_tpu_torch.models.attention import NEG_FILL, MultiHeadAttention, dropout
+from emg_tpu_torch.utils.quantize import weight_as
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Linear layer at the activation dtype; the parameters stay float32."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    """Linear layer at the activation dtype; the parameters stay float32
+    (an int8 weight dequantizes, ``utils/quantize.py``)."""
+    return F.linear(x, weight_as(layer.weight, x.dtype), layer.bias.to(x.dtype))
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -113,16 +118,18 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
     def decode_step(self, x_tok, k_cache, v_cache, cross_k, cross_v, step: torch.Tensor,
                     tokens_pad_mask, query_is_pad, memory_padding_mask):
         """x_tok: (B, 1, D); k_cache/v_cache: this layer's (B, H, S, Dh)
-        caches, updated in place at row ``step`` (a 0-dim int64 tensor);
-        cross_k/cross_v: (U, H, T, Dh) and memory_padding_mask (U, T) for U
-        utterances, U dividing B, rows grouped by utterance."""
+        caches, updated in place at row ``step`` of each batch row (an int64
+        tensor of shape () or (B,)); cross_k/cross_v: (U, H, T, Dh) and
+        memory_padding_mask (U, T) for U utterances, U dividing B, rows
+        grouped by utterance."""
         cdt = x_tok.dtype
-        S = k_cache.shape[2]
+        B, H, S, Dh = k_cache.shape
         q, k_new, v_new = self.self_attn.project_qkv(x_tok)  # (B, H, 1, Dh)
-        row = step.reshape(1)
-        k_cache.index_copy_(2, row, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(2, row, v_new.to(v_cache.dtype))
-        valid = torch.arange(S, device=x_tok.device)[None, :] <= step  # causal
+        rows = step.expand(B)
+        at = rows.view(B, 1, 1, 1).expand(B, H, 1, Dh)
+        k_cache.scatter_(2, at, k_new.to(k_cache.dtype))
+        v_cache.scatter_(2, at, v_new.to(v_cache.dtype))
+        valid = torch.arange(S, device=x_tok.device) <= rows[:, None]  # causal, (B, S)
         sa = self.self_attn.attend_step(
             q, k_cache, v_cache, valid, tokens_pad_mask, query_is_pad,
         )
@@ -184,8 +191,8 @@ class TransformerDecoder(nn.Module):
     def decode_step(self, x_tok, caches, cross_kvs, step: torch.Tensor, tokens_pad_mask,
                     query_is_pad, memory_padding_mask):
         """caches: (k_all, v_all), each (L, B, H, S, Dh) stacked over layers
-        and updated in place at row ``step`` (a 0-dim int64 tensor).
-        Returns the (B, 1, D) output."""
+        and updated in place at row ``step`` of each batch row (an int64
+        tensor of shape () or (B,)). Returns the (B, 1, D) output."""
         k_all, v_all = caches
         for i, layer in enumerate(self.layers):
             ck, cv = cross_kvs[i]

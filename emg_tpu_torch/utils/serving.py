@@ -47,7 +47,10 @@ def cast_params_for_serving(model: nn.Module, dtype=torch.bfloat16) -> nn.Module
     """A copy of ``model`` whose serving-hot weights (``serving_hot``) are
     cast to ``dtype``, for inference only. Every other parameter and every
     buffer is shared with ``model``, which is left as it was. A model whose
-    serving-hot weights already have ``dtype`` is returned as it is."""
+    serving-hot weights already have ``dtype`` is returned as it is. An int8
+    weight (``utils/quantize.py::Int8Weight``) holds buffers, not
+    parameters, so it stays as it is, as the JAX package skips its
+    ``Int8Tensor`` leaves."""
     hot = {name: p for name, p in model.named_parameters() if serving_hot(name)}
     if all(p.dtype == dtype for p in hot.values()):
         return model

@@ -233,8 +233,11 @@ def test_device_beam_emits_lexicon_words_bf16(lexicon_lm):
     # the searcher decodes with its own cast copy; the caller's model is as it was
     assert dev.model is not tm and dev.model.w_raw_in.weight.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in tm.parameters())
-    with pytest.raises(NotImplementedError):
-        dev.search_from_raw(np.zeros((100, 8), np.float32), 4)
+    # from the raw signal (n = 700: bucket 1280, F = 58 frames, cut to 16)
+    raw = (120 * np.random.default_rng(3).normal(size=(700, 8))).astype(np.float32)
+    hist, score, words = dev.search_from_raw(raw, L)
+    assert np.isfinite(score)
+    assert all(w in lexicon_lm["words"] for w in words)
 
 
 def test_host_beam_matches_jax(lexicon_lm):

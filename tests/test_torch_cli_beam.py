@@ -10,9 +10,14 @@ both sides, beam width 16, two utterances per device-beam launch.
 ``python -m emg_tpu_torch.cli --evaluate_saved_beam_search`` (device DSP ->
 encoder -> beam -> WER, on the CPU) writes log_beam_search.txt with the
 same prediction lines and the same WER as ``emg_tpu.cli``'s, through the
-device beam and through the host beam. The JAX side is given the batches
-the port's dataset built, as tests/test_torch_greedy.py does: the two DSP
-paths differ by ~2e-4, which may flip a near tie under random weights.
+device beam and through the host beam, and through the device beam with
+``--quantize_int8 true`` and with ``--continuous_lanes 2`` (on a 12-sentence
+corpus whose three test utterances share a geometry group, so that two
+lanes serve them with one refill). ``--evaluate_saved_greedy_search
+--quantize_int8 true`` writes the JAX CLI's log_greedy_search.txt. The JAX
+side is given the batches the port's dataset built, as
+tests/test_torch_greedy.py does: the two DSP paths differ by ~2e-4, which
+may flip a near tie under random weights.
 """
 
 import dataclasses
@@ -35,16 +40,15 @@ from emg_tpu_torch import cli
 from emg_tpu_torch.config import Config, ModelConfig
 from emg_tpu_torch.data.dataset import EMGDataset, make_normalizers
 from emg_tpu_torch.data.fixtures import FIXTURE_SENTENCES
-from emg_tpu_torch.decode import lm_train
+from emg_tpu_torch.decode import ContinuousBeamServer, lm_train
 from emg_tpu_torch.decode.kenlm_binary import write_kenlm_binary
 from emg_tpu_torch.utils.convert import state_dict_from_flax
 from tests.test_torch_model import GEOMETRY, one_torch_thread, perturbed  # noqa: F401
 
 
-@pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def make_setup(tmp_path_factory, n_sentences: int):
     root = tmp_path_factory.mktemp("corpus")
-    paths = make_synthetic_corpus(str(root), n_sentences=8, seed=0)
+    paths = make_synthetic_corpus(str(root), n_sentences=n_sentences, seed=0)
     arpa = str(root / "lm.arpa")
     lm_train.write_arpa(lm_train.train_arpa(FIXTURE_SENTENCES, order=3), arpa)
     argv = ["--decode.compute_dtype", "float32", "--BeamWidth", "16",
@@ -59,7 +63,6 @@ def setup(tmp_path_factory):
     make_normalizers(cfg, max_samples=2, device="cpu")
     testset = EMGDataset(cfg, test=True, device="cpu")
     prepared = [cli.prepare_single(cfg, testset, i) for i in range(len(testset))]
-    assert len(prepared) == 2
 
     pb0, frames0, _ = prepared[0]
     jm = JaxEMGModel(JaxModelConfig(**GEOMETRY))
@@ -76,6 +79,22 @@ def setup(tmp_path_factory):
     jax_ckpt = str(root / "jax_ckpt")
     CheckpointManager(jax_ckpt).save_params(variables["params"], variables["batch_stats"])
     return dict(root=root, argv=argv, ckpt=ckpt, jax_ckpt=jax_ckpt, prepared=prepared, arpa=arpa)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    out = make_setup(tmp_path_factory, 8)
+    assert len(out["prepared"]) == 2
+    return out
+
+
+@pytest.fixture(scope="module")
+def pooled(tmp_path_factory):
+    """12 sentences: three test utterances in one geometry group, so that
+    continuous lanes serve them (two lanes, one refill)."""
+    out = make_setup(tmp_path_factory, 12)
+    assert len(out["prepared"]) == 3
+    return out
 
 
 def predictions(log_path):
@@ -124,13 +143,39 @@ def test_beam_cli_matches_jax(setup, port_logs, device_beam):
     assert 0.0 <= final < float("inf")
 
 
-def test_beam_cli_refuses_unported_options(setup, tmp_path):
-    base = setup["argv"] + ["--device", "cpu", "--output_directory", str(tmp_path),
-                            "--evaluate_saved_beam_search", setup["ckpt"]]
-    with pytest.raises(NotImplementedError, match="continuous_lanes"):
-        cli.main(base + ["--continuous_lanes", "2"])
-    with pytest.raises(NotImplementedError, match="quantize_int8"):
-        cli.main(base + ["--quantize_int8", "true"])
+@pytest.mark.parametrize("option, corpus", [(["--continuous_lanes", "2"], "pooled"),
+                                            (["--quantize_int8", "true"], "setup")],
+                         ids=["continuous_lanes", "quantize_int8"])
+def test_beam_cli_options_match_jax(request, tmp_path, option, corpus):
+    setup = request.getfixturevalue(corpus)
+    argv = setup["argv"] + ["--device_beam", "true"] + option
+    with mock.patch.object(ContinuousBeamServer, "serve", autospec=True,
+                           side_effect=ContinuousBeamServer.serve) as served:
+        final = cli.main(argv + ["--device", "cpu", "--output_directory", str(tmp_path / "port"),
+                                 "--evaluate_saved_beam_search", setup["ckpt"]])
+    assert served.call_count == (option[0] == "--continuous_lanes")
+    run_jax_cli(setup, argv + ["--output_directory", str(tmp_path / "jax"),
+                               "--evaluate_saved_beam_search", setup["jax_ckpt"]])
+    got = predictions(str(tmp_path / "port" / "log_beam_search.txt"))
+    assert got == predictions(str(tmp_path / "jax" / "log_beam_search.txt"))
+    assert got[-1] == f"Final WER: {final}"
+
+
+def test_greedy_cli_int8_matches_jax(setup, tmp_path):
+    """``--quantize_int8 true`` reaches greedy decoding too (the checkpoint's
+    float32 decoder weights quantized at load, as the JAX CLI does)."""
+    argv = setup["argv"] + ["--quantize_int8", "true"]
+    per, acc = cli.main(argv + ["--device", "cpu", "--output_directory", str(tmp_path / "port"),
+                                "--evaluate_saved_greedy_search", setup["ckpt"]])
+    run_jax_cli(setup, argv + ["--output_directory", str(tmp_path / "jax"),
+                               "--evaluate_saved_greedy_search", setup["jax_ckpt"]])
+
+    def lines(directory):
+        with open(os.path.join(directory, "log_greedy_search.txt")) as f:
+            return [line.rstrip("\n") for line in f if line.startswith(("Prediction:", "PER:"))]
+    got = lines(str(tmp_path / "port"))
+    assert got == lines(str(tmp_path / "jax"))
+    assert len(got) == 3 and got[-1] == f"PER: {per} and accuracy: {acc}"
 
 
 def test_beam_cli_kenlm_binary_takes_host_beam(setup, port_logs, tmp_path):

@@ -16,7 +16,8 @@ at step 3 and keeps extending its raw chain, one at step 1, one never), and
   once per k-step block.
 - ``run_greedy(use_cache=False)`` equals ``use_cache=True``, as
   tests/test_greedy.py::test_cached_greedy_matches_full holds JAX's.
-- ``LoopRunner``'s copy-back into static buffers and its model check.
+- ``LoopRunner``'s copy-back into static buffers (a ping-pong pair that
+  swapped is not copied) and its model check.
 """
 
 import dataclasses
@@ -35,7 +36,7 @@ from emg_tpu.models.model import EMGModel as JaxEMGModel
 from emg_tpu_torch.config import ModelConfig
 from emg_tpu_torch.data.batching import PackedBatch
 from emg_tpu_torch.decode import LoopRunner, greedy_decode, greedy_decode_cached, run_greedy
-from emg_tpu_torch.decode.graphs import copy_into
+from emg_tpu_torch.decode.graphs import _swapped, copy_into
 from emg_tpu_torch.models.model import EMGModel
 from emg_tpu_torch.text.phonemes import END_ID, PAD_ID
 from emg_tpu_torch.utils.convert import state_dict_from_flax
@@ -143,9 +144,12 @@ def test_loop_runner_copies_back_and_keeps_its_model():
     a, b = torch.zeros(3), torch.ones(3)
     read_only = torch.full((2,), 7.0)
     static = dict(cache=a, spare=b, x=torch.zeros(2), inputs=[(read_only,)])
-    # after an odd number of ping-pong steps the current cache is the spare
-    copy_into(static, dict(cache=b, spare=a, x=torch.arange(2.0), inputs=[(read_only,)]))
-    assert static["cache"] is a and torch.equal(a, torch.ones(3))
+    # after an odd number of ping-pong steps the current cache is the spare:
+    # neither buffer is copied, the runner swaps the two names instead
+    state = dict(cache=b, spare=a, x=torch.arange(2.0), inputs=[(read_only,)])
+    copy_into(static, state)
+    assert static["cache"] is a and torch.equal(a, torch.zeros(3)) and torch.equal(b, torch.ones(3))
+    assert _swapped(static, state) == dict(cache=b, spare=a)
     assert torch.equal(static["x"], torch.arange(2.0))
     assert static["inputs"][0][0] is read_only
     with pytest.raises(TypeError):
