@@ -92,7 +92,23 @@ Phases, in order; any failure exits non-zero:
      beam CLI with --continuous_lanes 4 (words and launches equal to phase
      9's lock-step run), then all test utterances at one geometry,
      lock-step (8 a launch) against 4 lanes: ms, utterances/s, equal
-     words, advances, refills, host reads an advance.
+     words, advances, refills, host reads an advance;
+ 12. multi-device training: K3-K5 on a block of a batch at its batch and
+     head offsets, bitwise the whole batch's launch's block, and their
+     plain versions at the same offsets; then two ranks sharing the one
+     card (gloo, started by the port's launcher with
+     ``share_card=True``): phase 8's microbatch
+     (float32, dropout 0.2; rows and utterances padded to multiples of 2)
+     on the 2x1, 1x2 and 1x2 sequence-sharded meshes at full width, each
+     rank's attention through K3-K5 at its batch and head offsets, held
+     against the single-rank step on the card (loss, whole gradient and
+     each parameter's, as phase 8; BatchNorm statistics equal on both
+     ranks), with each rank's K3-K5 launches and step ms (the first and a
+     warm second); then the same two ranks run one epoch of the CLI's
+     train mode with --parallel.data_axis 2 (each joins through cli.main,
+     as ranks that torchrun starts do; K1-K5 counted a rank), whose
+     model.pt the greedy path serves. The ranks' collectives go through
+     the host (gloo): no NVLink is measured.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -101,6 +117,7 @@ measurement to a JSON file.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import contextlib
 import glob
@@ -1414,9 +1431,9 @@ def recording_shapes(shapes: set):
 
     real = attention_module.flash_attention_relpos_train
 
-    def record(q, k, v, used, oob, kp, rate, seed):
+    def record(q, k, v, used, oob, kp, rate, seed, *offsets):
         shapes.add((q.shape[0], q.shape[2], str(q.dtype).split(".")[-1], float(rate)))
-        return real(q, k, v, used, oob, kp, rate, seed)
+        return real(q, k, v, used, oob, kp, rate, seed, *offsets)
     return mock.patch.object(attention_module, "flash_attention_relpos_train", record)
 
 
@@ -1583,10 +1600,11 @@ def profile_step(run) -> dict:
     return result
 
 
-def largest_batch(cfg):
+def largest_batch(cfg, multiple: int = 1):
     """The training split's largest microbatch at the config's
-    max_batch_length, staged int16 as the trainer stages it: (its
-    utterances, the PackedBatch, max_frames)."""
+    max_batch_length, staged int16 as the trainer stages it, its rows and
+    utterances padded to multiples of ``multiple`` (a mesh's data axis):
+    (its utterances, the PackedBatch, max_frames)."""
     from emg_tpu_torch.data.batching import FRAME_BUCKETS, bucket_up, make_packed_batch, quantize_packed_raw
     from emg_tpu_torch.data.dataset import EMGDataset
     from emg_tpu_torch.data.sampler import DynamicBatchSampler
@@ -1597,7 +1615,8 @@ def largest_batch(cfg):
     idxs = max(sampler, key=len)
     batch = EMGDataset.collate_raw([trainset[i] for i in idxs])
     pb = quantize_packed_raw(make_packed_batch(batch["raw_emg"], batch["lengths"],
-                                               batch["phonemes_int"], chunk=cfg.data.packed_chunk))
+                                               batch["phonemes_int"], chunk=cfg.data.packed_chunk,
+                                               row_multiple=multiple, batch_multiple=multiple))
     return idxs, pb, bucket_up(max(batch["lengths"]), FRAME_BUCKETS)
 
 
@@ -2363,6 +2382,305 @@ def beam_remainder(argv, ckpt, root, record):
     print(json.dumps({"beam_remainder": summary}, default=str), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device training, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# (name, data axis, model axis, sequence_shard): two ranks each
+MESH_GEOMETRIES = (("2x1", 2, 1, False), ("1x2", 1, 2, False), ("1x2_seq", 1, 2, True))
+MESH_EPOCH_ARGS = ["--n_epochs", "1", "--max_batch_length", "80000", "--batch_size_grad", "20",
+                   "--report_loss", "2", "--per_train_batches", "2"]
+
+
+def grad_errors(got, ref, largest):
+    """(whole-gradient norm error, each parameter's max error over its
+    largest magnitude (the five worst), BN-fed biases' max error over the
+    model's largest gradient), as phase 8 holds them."""
+    worst, noise, diff_sq, ref_sq = {}, 0.0, 0.0, 0.0
+    for name, g in ref.items():
+        err = float((got[name] - g).abs().max())
+        if name.startswith("conv_blocks") and name.endswith(("conv1.bias", "conv2.bias",
+                                                            "residual_path.bias")):
+            noise = max(noise, err / largest)
+            continue
+        worst[name] = err / max(float(g.abs().max()), 1e-30)
+        diff_sq += float((got[name] - g).pow(2).sum())
+        ref_sq += float(g.pow(2).sum())
+    return (diff_sq / ref_sq) ** 0.5, dict(sorted(worst.items(), key=lambda kv: -kv[1])[:5]), noise
+
+
+def k345_at_offsets(record) -> dict:
+    """K3-K5 on a block of a batch (batch rows 2-3, heads 4-7 of B=4, H=8,
+    T=256, Dh=96, dropout 0.2) at its offsets (2, 4): bitwise the whole
+    batch's launch's block, and their plain versions at the same offsets
+    to the phase 4 tolerance."""
+    from emg_tpu_torch.ops import flash_attention as fa
+
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        B, H, T, Dh, rate = 4, 8, 256, 96, 0.2
+        q, k, v, dout = (torch.randn(B, H, T, Dh, generator=g, device=DEVICE).to(dtype)
+                         for _ in range(4))
+        used = (torch.randn(H, 2 * T - 1, Dh, generator=g, device=DEVICE) * 0.1).to(dtype)
+        oob = torch.zeros(2 * T - 1, device=DEVICE)
+        kp = torch.zeros(B, T, dtype=torch.bool, device=DEVICE)
+        kp[3, 200:] = True
+        seed = torch.tensor([987], dtype=torch.int32, device=DEVICE)
+        o, lse = fa.flash_train_fwd(q, k, v, used, oob, kp, rate, seed)
+        delta = (dout.float() * o).sum(-1)
+        whole = (o, lse, fa.flash_train_bwd_dq(q, k, v, used, oob, kp, dout, lse, delta, rate,
+                                               seed)[0],
+                 *fa.flash_train_bwd_dkv(q, k, v, used, oob, kp, dout, lse, delta, rate, seed))
+        b, h = slice(2, 4), slice(4, 8)
+        args = (*(t[b, h].contiguous() for t in (q, k, v)), used[h].contiguous(), oob,
+                kp[b].contiguous())
+        bwd = (*args, dout[b, h].contiguous(), lse[b, h].contiguous(), delta[b, h].contiguous(),
+               rate, seed, 2, 4)
+        block = (*fa.flash_train_fwd(*args, rate, seed, 2, 4), fa.flash_train_bwd_dq(*bwd)[0],
+                 *fa.flash_train_bwd_dkv(*bwd))
+        plain = (*fa.flash_train_fwd_plain(*args, rate, seed, 2, 4),
+                 fa.flash_train_bwd_dq_plain(*bwd)[0], *fa.flash_train_bwd_dkv_plain(*bwd))
+        names = ("o", "lse", "dq", "dk", "dv")
+        result[str(dtype).split(".")[-1]] = dict(
+            block_bitwise={n: torch.equal(x, w[b, h]) for n, x, w in zip(names, block, whole)},
+            vs_plain={n: rel_err(x, p) for n, x, p in zip(names, block, plain) if n != "lse"})
+    record["k345_offsets"] = result
+    log(f"K3-K5 at batch and head offsets {json.dumps(result)}")
+    for dtype, r in result.items():
+        tol = TRAIN_ATTN_TOL[getattr(torch, dtype)]
+        if not all(r["block_bitwise"].values()) or max(r["vs_plain"].values()) > tol:
+            raise AssertionError(f"K3-K5 at offsets, {dtype}: {r}")
+    return result
+
+
+def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv):
+    """A rank of a mesh (here two on card 0; one a card in
+    chip_mesh_cards.py): rank 0 first takes the single-rank step on its
+    card; then, for each geometry, every rank takes the sharded step from
+    the same seeded weights and generator seed (K3-K5 counted over it
+    alone), a second (warm) one for its time, and rank 0 holds the first's
+    gathered gradients against the single-rank step's. Each rank writes a
+    JSON and its BatchNorm statistics to ``out_dir``. Then the ranks run
+    the CLI's train mode on ``cli_argv``, as ranks that torchrun or a
+    coordinator started do (``cli.main`` joins their process group), with
+    the kernels counted over that run alone."""
+    import torch.distributed as dist
+
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.parallel.distributed import rank_device
+    from emg_tpu_torch.parallel.mesh import Mesh, MeshShape, gather_full, shard_params
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+
+    rank, device = dist.get_rank(), rank_device(DEVICE)
+    # host-clock marks (seconds since the epoch, one clock for both ranks)
+    timeline = {"start": time.time()}
+    cfg = Config.from_args(cfg_argv)
+    step = make_train_step(cfg.train)
+    counters = kernel_counters()
+    # the seeded weights, drawn once; each step starts from a copy
+    t0 = time.perf_counter()
+    base = EMGModel(cfg.model, device=device, generator=torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    # a process's first optimizer imports torch's compiler stack (~10 s on
+    # the card's host): every rank pays it here, side by side, not while
+    # another rank waits for it in a collective
+    torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1, device=device))])
+    timeline["base_built"] = time.time()
+
+    def fresh_state(mesh=None, seq=False):
+        model = copy.deepcopy(base)
+        if mesh is not None:
+            shard_params(model, mesh, sequence_shard=seq)
+        return create_train_state(model, cfg.train)
+
+    def timed_step(state, mark=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if mark:
+            timeline[mark] = time.time()
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, pb, max_frames, torch.Generator(device=device))
+        end.record()
+        torch.cuda.synchronize()
+        return metrics, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    ref = None
+    if rank == 0:
+        state = fresh_state()
+        metrics, ms, _ = timed_step(state)
+        ref = dict(loss=float(metrics["loss"]), ms=ms,
+                   grads={n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
+        del state
+    timeline["reference_done"] = time.time()
+    for name, data, model_axis, seq in geometries:
+        mesh = Mesh(MeshShape(data, model_axis), device)
+        timeline[f"{name}_mesh_built"] = time.time()
+        state = fresh_state(mesh, seq)
+        for fn in counters.values():
+            fn.launches = 0
+        metrics, ms, wall = timed_step(state, f"{name}_step_start")
+        timeline[f"{name}_step_end"] = time.time()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        row = dict(rank=rank, loss=float(metrics["loss"]), launches=launches, step_ms=ms,
+                   step_wall_ms=wall, heads_a_rank=cfg.model.n_heads_encoder // model_axis,
+                   model_init_s=init_s, timeline=dict(timeline))
+        # the first step's gradients, whole (a collective), before the warm
+        # step adds into them
+        grads = {n: gather_full(n, p.grad.detach(), mesh) for n, p in
+                 state.model.named_parameters()}
+        if ref is not None:
+            largest = max(float(g.abs().max()) for g in ref["grads"].values())
+            norm_err, worst, noise = grad_errors(grads, ref["grads"], largest)
+            row.update(single_rank_loss=ref["loss"], single_rank_step_ms=ref["ms"],
+                       loss_rel_err=abs(row["loss"] - ref["loss"]) / abs(ref["loss"]),
+                       grad_norm_rel_err=norm_err, worst_grad_rel_err=worst,
+                       bn_fed_bias_err_of_largest=noise)
+        del grads
+        _, row["warm_step_ms"], row["warm_step_wall_ms"] = timed_step(state)
+        torch.save({n: b.detach().cpu() for n, b in state.model.named_buffers()
+                    if n.endswith(("running_mean", "running_var"))},
+                   os.path.join(out_dir, f"{name}.{rank}.stats.pt"))
+        with open(os.path.join(out_dir, f"{name}.{rank}.json"), "w") as f:
+            json.dump(row, f)
+        del state
+        torch.cuda.empty_cache()
+
+    from emg_tpu_torch import cli
+
+    del base, ref
+    torch.cuda.empty_cache()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cli.main(cli_argv)
+    epoch = dict(wall_s=time.perf_counter() - t0,
+                 launches={k: fn.launches for k, fn in counters.items()})
+    with open(os.path.join(out_dir, f"cli.{rank}.json"), "w") as f:
+        json.dump(epoch, f)
+
+
+def mesh_steps(argv, root, record, geometries=MESH_GEOMETRIES, share_card=True,
+               mesh_flags=("--parallel.data_axis", "2")) -> dict:
+    """The sharded steps and CLI epoch of ``mesh_rank_steps`` (by default on
+    two ranks sharing card 0; else one rank a card over NCCL); the steps
+    are checked here from what the ranks wrote, the epoch by
+    ``mesh_cli_epoch``."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.parallel.distributed import launch
+
+    cfg_argv = argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)]
+    cfg = Config.from_args(cfg_argv)
+    data = max(g[1] for g in geometries)
+    idxs, pb, max_frames = largest_batch(cfg, multiple=data)
+    out = os.path.join(root, "mesh_steps")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()
+    world = geometries[0][1] * geometries[0][2]
+    cli_argv = argv + MESH_EPOCH_ARGS + list(mesh_flags) + [
+        "--device", DEVICE, "--output_directory", os.path.join(root, "mesh_train")]
+    t0 = time.perf_counter()
+    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, geometries, cli_argv), world, DEVICE,
+           share_card=share_card)
+    result = dict(examples=len(idxs), max_frames=max_frames, rows=int(pb.packed_raw.shape[0]),
+                  utterances=int(pb.lengths.shape[0]), launch_s=time.perf_counter() - t0,
+                  geometries={})
+    layers = cfg.model.num_layers_encoder
+    failures = []
+    for name, *_ in geometries:
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"{name}.{r}.json")) as f:
+                ranks.append(json.load(f))
+        stats = [torch.load(os.path.join(out, f"{name}.{r}.stats.pt")) for r in range(world)]
+        equal_stats = all(torch.equal(st[k], stats[0][k]) for st in stats[1:] for k in st)
+        result["geometries"][name] = dict(ranks=ranks, bn_stats_equal_on_ranks=equal_stats)
+        head = ranks[0]
+        if not (head["loss_rel_err"] <= STEP_LOSS_RTOL and head["grad_norm_rel_err"] <= STEP_NORM_TOL
+                and max(head["worst_grad_rel_err"].values()) <= STEP_GRAD_TOL
+                and head["bn_fed_bias_err_of_largest"] <= STEP_NOISE_TOL):
+            failures.append(f"{name}: the sharded step differs from the single-rank step")
+        if any(abs(r["loss"] - head["loss"]) > STEP_LOSS_RTOL * abs(head["loss"]) for r in ranks):
+            failures.append(f"{name}: the ranks report different losses")
+        if not equal_stats:
+            failures.append(f"{name}: BatchNorm statistics differ between the ranks")
+        for r in ranks:
+            for k in ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv"):
+                if r["launches"][k] != layers:
+                    failures.append(f"{name}: rank {r['rank']} launched {k} "
+                                    f"{r['launches'][k]} times, not {layers}")
+    record["mesh_steps"] = result
+    log(f"mesh steps {json.dumps(result)}")
+    for name, g in result["geometries"].items():
+        log(f"{name}: K3-K5 a rank {[r['launches']['flash_train_fwd'] for r in g['ranks']]}, "
+            f"warm step ms {[round(r['warm_step_ms'], 1) for r in g['ranks']]}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
+def mesh_cli_epoch(argv, root, record, world: int = 2) -> dict:
+    """The CLI epoch the mesh's ranks ran after their steps (one epoch, by
+    default on a 2x1 mesh of two ranks sharing card 0): each rank's
+    kernel launches, rank 0's log and checkpoints; then the greedy path
+    serving the model.pt it wrote (K1 and K2 counted over the serving
+    run)."""
+    from emg_tpu_torch import cli
+
+    out = os.path.join(root, "mesh_train")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, "mesh_steps", f"cli.{r}.json")) as f:
+            ranks.append(json.load(f))
+    latest = torch.load(os.path.join(out, "latest"), map_location="cpu", weights_only=True)
+    with open(os.path.join(out, "log.txt")) as f:
+        lines = f.read().splitlines()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    per, acc = cli.main(argv + ["--device", DEVICE, "--output_directory",
+                                os.path.join(root, "mesh_eval"),
+                                "--evaluate_saved_greedy_search", os.path.join(out, "model.pt")])
+    logging.getLogger().handlers.clear()
+    launches = {k: counters[k].launches for k in ("iir_scan", "flash_attention_relpos")}
+    result = dict(cli_wall_s=max(r["wall_s"] for r in ranks),
+                  rank_launches=[r["launches"] for r in ranks],
+                  microbatches=int(latest["microbatches"]), updates=int(latest["updates"]),
+                  finished_epoch_lines=sum("finished epoch" in line for line in lines),
+                  mesh_line=next((line for line in lines if "parallel mesh" in line), None),
+                  served=dict(per=per, accuracy=acc, launches=launches))
+    record["mesh_cli_epoch"] = result
+    log(f"mesh CLI epoch {json.dumps(result)}")
+    if result["finished_epoch_lines"] != 1 or not result["mesh_line"]:
+        raise AssertionError(f"the mesh CLI run did not train one epoch on rank 0's log: {result}")
+    if result["microbatches"] < 2 or not 0.0 <= per < float("inf") or min(launches.values()) == 0:
+        raise AssertionError(f"the mesh-trained model.pt was not trained or served: {result}")
+    if not all(n > 0 for r in ranks for n in r["launches"].values()):
+        raise AssertionError(f"a kernel of the mesh CLI epoch was never launched: {result}")
+    return result
+
+
+def multi_device(argv, root, record):
+    t0 = time.perf_counter()
+    k345_at_offsets(record)
+    steps = mesh_steps(argv, root, record)
+    epoch = mesh_cli_epoch(argv, root, record)
+    record["mesh_phase_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {record['mesh_phase_s']:.1f} s")
+    summary = {name: dict(loss_rel_err=g["ranks"][0]["loss_rel_err"],
+                          grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
+                          k3_k5_launches_a_rank=[r["launches"]["flash_train_fwd"] for r in g["ranks"]],
+                          step_ms=[r["step_ms"] for r in g["ranks"]],
+                          warm_step_ms=[r["warm_step_ms"] for r in g["ranks"]])
+               for name, g in steps["geometries"].items()}
+    print(json.dumps({"multi_device": dict(geometries=summary, cli_epoch=epoch,
+                                           phase_s=record["mesh_phase_s"])}, default=str),
+          flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2420,6 +2738,8 @@ def main():
         recipes_phase(argv, root, record)
         log("phase 11: the beam's remainder")
         beam_remainder(argv, ckpt, root, record)
+        log("phase 12: multi-device training, two ranks sharing the card")
+        multi_device(argv, root, record)
 
     # K1 and K2 count over the greedy serving run (phase 9's JSON holds
     # their counts over the beam run), K3-K5 over the training run

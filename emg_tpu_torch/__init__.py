@@ -12,7 +12,9 @@ transformer encoder -> KV-cached greedy decoding -> PER, ``python -m
 emg_tpu_torch.cli --evaluate_saved_greedy_search CKPT``), beam evaluation
 (the same encoder, then the lexicon-constrained beam search with the
 n-gram LM -> WER, ``--evaluate_saved_beam_search CKPT --lang_model LM``)
-and training (``python -m emg_tpu_torch.cli --output_directory OUT``).
+and training (``python -m emg_tpu_torch.cli --output_directory OUT``), on
+one device or a (data, model) device mesh of one process a device
+(``--parallel.data_axis D --parallel.model_axis M``, ``parallel/``).
 """
 
 import torch

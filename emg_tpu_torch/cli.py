@@ -27,6 +27,16 @@ the port's model.pt, a reference ``.pt`` file, or
 (``train/recipes.py``) after the flags, in every mode, so it overrides an
 explicit flag it sets and ``--recipe conformer_model`` also builds the
 conformer to evaluate a conformer's model.pt.
+
+Training on a device mesh takes the JAX package's flags:
+``--parallel.data_axis D --parallel.model_axis M [--parallel.sequence_shard
+true]`` trains as D x M processes, one a device (``parallel/
+distributed.py``). On one host the CLI launches them itself (cards 0..DM-1,
+NCCL; or with ``--device cpu``, DM CPU processes over gloo); across hosts
+start one process a card with ``torchrun``, or with
+``--parallel.coordinator_address host:port --parallel.num_processes N
+--parallel.process_id R``. Rank 0 writes the log, the metrics and the
+checkpoints, the files one device would write.
 """
 
 from __future__ import annotations
@@ -264,10 +274,14 @@ def train(cfg: Config, device="cuda"):
     from emg_tpu_torch.train.metrics_writer import MetricsWriter, default_log_dir
     from emg_tpu_torch.train.trainer import Trainer
 
+    from emg_tpu_torch.parallel.distributed import is_primary
+    from emg_tpu_torch.train.metrics_writer import NullMetricsWriter
+
     trainset = EMGDataset(cfg, dev=False, test=False, device=device)
     devset = EMGDataset(cfg, dev=True, device=device)
     log.info("train / dev split: %d %d", len(trainset), len(devset))
-    writer = MetricsWriter(default_log_dir(os.path.join(cfg.paths.output_directory, "logs", "run")))
+    writer = (MetricsWriter(default_log_dir(os.path.join(cfg.paths.output_directory, "logs", "run")))
+              if is_primary() else NullMetricsWriter())
     trainer = Trainer(cfg, trainset, devset, writer, device=device)
     try:
         if cfg.paths.resume and trainer.ckpt.exists("latest"):
@@ -277,6 +291,20 @@ def train(cfg: Config, device="cuda"):
     finally:
         writer.close()
     return trainer
+
+
+def _train_rank(cfg: Config, device="cuda"):
+    """Train as one rank of a mesh's process group (rank 0 keeps the log)."""
+    from emg_tpu_torch.parallel import distributed
+
+    if distributed.is_primary():
+        _setup_logging(cfg.paths.output_directory, "log.txt")
+    else:
+        logging.basicConfig(level=logging.WARNING, format="%(message)s", force=True)
+    device = distributed.rank_device(device)
+    if device.type == "cuda":  # the kernels launch on the current card
+        torch.cuda.set_device(device)
+    return train(cfg, device=device)
 
 
 def _pop_flag(argv, name: str, default=None):
@@ -307,7 +335,13 @@ def _print_help():
 
 
 def main(argv=None):
-    """Dispatch on the evaluate flags: beam or greedy evaluation, or training."""
+    """Dispatch on the evaluate flags: beam or greedy evaluation, or training.
+
+    Training on a mesh of more than one device runs as its ranks: this
+    process joins a process group where it is one of its ranks (torchrun,
+    ``parallel.coordinator_address``, or a caller's ``parallel.
+    distributed.launch``), else it launches one process a device on this
+    host and returns None when they are done."""
     from emg_tpu_torch.train.recipes import apply_recipe
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -328,6 +362,15 @@ def main(argv=None):
     if cfg.paths.evaluate_saved_greedy_search:
         _setup_logging(cfg.paths.output_directory, "log_greedy_search.txt")
         return evaluate_saved_greedy_search(cfg, device=device)
+    from emg_tpu_torch.parallel import distributed
+    from emg_tpu_torch.parallel.mesh import mesh_from_config
+
+    if distributed.join_runtime(cfg.parallel, device):
+        return _train_rank(cfg, device)
+    shape = mesh_from_config(cfg.parallel, distributed.local_devices(cfg.parallel, device))
+    if shape is not None:
+        distributed.launch(_train_rank, (cfg, device), shape.size, device)
+        return None
     _setup_logging(cfg.paths.output_directory, "log.txt")
     return train(cfg, device=device)
 

@@ -63,12 +63,18 @@ def pack_raw_emg(tensors: List[np.ndarray], length: int) -> np.ndarray:
     return flat.reshape(total // length, length, *tensors[0].shape[1:])
 
 
+def _round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
 def make_packed_batch(
     raw_emg: List[np.ndarray],
     lengths: List[int],
     phonemes_int: List[np.ndarray],
     chunk: int = 1600,
     pad_id: int = 42,
+    row_multiple: int = 1,
+    batch_multiple: int = 1,
 ) -> PackedBatch:
     """Assemble a bucketed batch.
 
@@ -76,16 +82,21 @@ def make_packed_batch(
     raw EMG has 8x as many samples and the CNN subsamples by 8, so utterance
     b occupies frames [offsets[b], offsets[b]+lengths[b]) of the packed
     post-CNN stream.
+
+    ``row_multiple`` / ``batch_multiple`` round the padded row count and
+    batch size up to multiples of the mesh's data axis, so they split
+    evenly over its ranks (``parallel/mesh.py::shard_batch``), as in the
+    JAX package.
     """
     B = len(raw_emg)
     rows = pack_raw_emg(raw_emg, chunk)
     n_rows = rows.shape[0]
-    rows_b = bucket_up(n_rows, ROW_BUCKETS)
+    rows_b = _round_up(bucket_up(n_rows, ROW_BUCKETS), row_multiple)
     if rows_b > n_rows:
         pad_rows = np.full((rows_b - n_rows, chunk, rows.shape[2]), PAD_VALUE, rows.dtype)
         rows = np.concatenate([rows, pad_rows], axis=0)
 
-    B_b = bucket_up(B, BATCH_BUCKETS)
+    B_b = _round_up(bucket_up(B, BATCH_BUCKETS), batch_multiple)
     lengths_arr = np.zeros(B_b, np.int32)
     lengths_arr[:B] = lengths
     offsets = np.concatenate([[0], np.cumsum(lengths_arr)[:-1]]).astype(np.int32)

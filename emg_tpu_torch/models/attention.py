@@ -23,6 +23,14 @@ and the transformer encoder under ``use_flash_attention=false``.
 Train mode (``module.train()``) applies the reference's dropouts. Every
 random draw comes from the ``torch.Generator`` the caller passes down (on
 the activations' device), so a run is a function of its generator's seed.
+
+On a device mesh (``parallel/mesh.py::shard_params`` sets ``mesh``) a
+layer holds H / model of the heads, from ``head_offset`` on, and the
+rank's batch rows: it returns its heads' partial output projection, which
+the caller sums over the model axis. Its dropout masks are the unsharded
+layer's, sliced: the probabilities' drawn at the global (B, H, ...) shape,
+the fused kernels' hashed at global (b, h). The relative-position table
+stays whole on every rank; a rank uses its heads' rows.
 """
 
 from __future__ import annotations
@@ -41,15 +49,25 @@ ATTN_TILE = 128  # encoder self-attention pads T up to a multiple of this
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, shard=()) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout`` semantics: keep with
     probability 1 - rate, scale kept values by 1 / (1 - rate)), its mask
-    drawn from ``generator``. The identity outside training or at rate 0."""
+    drawn from ``generator``. The identity outside training or at rate 0.
+
+    ``shard`` lists (dim, start, global size) for each dim in which x is a
+    mesh rank's slice of the tensor the unsharded model drops: the mask is
+    drawn at the global shape and sliced, so every rank draws the same
+    numbers as one device and keeps its part of them."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = list(x.shape)
+    for dim, _, size in shard:
+        shape[dim] = size
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    for dim, start, _ in shard:
+        keep = keep.narrow(dim, start, x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -86,14 +104,15 @@ class LearnedRelativePositionalBias(nn.Module):
             torch.zeros(num_heads, 2 * max_relative_pos - 1, head_dim, 1)
         )
 
-    def window(self, L: int):
+    def window(self, L: int, heads: slice = slice(None)):
         """The length-L window: (H, 2L-1, Dh) table slice plus a (2L-1,)
-        additive out-of-range mask (0 / NEG_FILL).
+        additive out-of-range mask (0 / NEG_FILL); with ``heads``, only
+        those heads' rows (a mesh rank's).
 
         The table covers relative positions [-(maxpos-1), maxpos-1]; a query
         of length L needs [-(L-1), L-1]: zero-pad or slice to fit.
         """
-        table = self.embeddings[..., 0]
+        table = self.embeddings[heads, ..., 0]
         pad = max(L - self.max_relative_pos, 0)
         start = max(self.max_relative_pos - L, 0)
         padded = nn.functional.pad(table, (0, 0, pad, pad))
@@ -102,12 +121,13 @@ class LearnedRelativePositionalBias(nn.Module):
         oob = torch.where((m < pad) | (m >= 2 * L - 1 - pad), NEG_FILL, 0.0).to(torch.float32)
         return used, oob
 
-    def forward(self, q: torch.Tensor) -> torch.Tensor:
-        """q: (B, H, L, Dh) projected queries -> (B, H, L, L) relative
-        logits at q's dtype; the out-of-range mask enters only where the
-        window outgrows the table (L > max_relative_pos), as in JAX."""
+    def forward(self, q: torch.Tensor, heads: slice = slice(None)) -> torch.Tensor:
+        """q: (B, H, L, Dh) projected queries of the table's ``heads`` ->
+        (B, H, L, L) relative logits at q's dtype; the out-of-range mask
+        enters only where the window outgrows the table (L >
+        max_relative_pos), as in JAX."""
         L = q.shape[2]
-        used, oob = self.window(L)
+        used, oob = self.window(L, heads)
         rel = torch.einsum("bhld,hmd->bhlm", q, used.to(q.dtype))
         if L > self.max_relative_pos:
             rel = rel + oob.to(q.dtype)
@@ -115,6 +135,9 @@ class LearnedRelativePositionalBias(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
+    mesh = None  # the device mesh, set by parallel/mesh.py::shard_params
+    head_offset = 0  # the first of this rank's heads (num_heads of them)
+
     def __init__(self, d_model: int, num_heads: int, relative_positional: bool = False,
                  relative_positional_distance: int = 100, dropout: float = 0.0,
                  use_flash: bool = False):
@@ -171,6 +194,12 @@ class MultiHeadAttention(nn.Module):
             q = self.project_q(query)
             k, v = self.project_kv(key)
 
+        heads = slice(self.head_offset, self.head_offset + self.num_heads)
+        b_off, shard = 0, ()
+        if self.mesh is not None:
+            B = q.shape[0]
+            b_off = self.mesh.data_index * B
+            shard = self.mesh.batch_shard(B) + self.mesh.model_shard(self.num_heads, dim=1)
         if self.use_flash and self.relative_positional is not None and not causal:
             seed = None
             if self.training:
@@ -178,7 +207,7 @@ class MultiHeadAttention(nn.Module):
                 seed = (draw_seed(generator, q.device) if self.dropout > 0.0
                         else torch.zeros(1, dtype=torch.int32, device=q.device))
             o = relpos_self_attention(q, k, v, self.relative_positional, key_padding_mask,
-                                      self.dropout, seed)
+                                      self.dropout, seed, heads, b_off, self.head_offset)
             return self.output(o.to(query.dtype))
 
         logits = torch.einsum("bhqa,bhka->bhqk", q, k) / (self.head_dim ** 0.5)
@@ -191,9 +220,9 @@ class MultiHeadAttention(nn.Module):
         if query_padding_mask is not None:
             logits = torch.where(query_padding_mask[:, None, :, None], NEG_FILL, logits)
         if self.relative_positional is not None:
-            logits = logits + self.relative_positional(q)
+            logits = logits + self.relative_positional(q, heads)
         probs = torch.softmax(logits, dim=-1)
-        probs = dropout(probs, self.dropout, generator, self.training)
+        probs = dropout(probs, self.dropout, generator, self.training, shard)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
         return self.output(o)
 
@@ -227,11 +256,15 @@ class MultiHeadAttention(nn.Module):
 def relpos_self_attention(q, k, v, relpos: LearnedRelativePositionalBias,
                           key_padding_mask: Optional[torch.Tensor],
                           dropout_rate: float = 0.0,
-                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          seed: Optional[torch.Tensor] = None,
+                          heads: slice = slice(None), b_off: int = 0,
+                          h_off: int = 0) -> torch.Tensor:
     """Encoder self-attention through the fused kernels. q, k, v:
-    (B, H, T, Dh). Returns (B, H, T, Dh) float32. With ``seed`` (a
-    one-element int32 tensor) it is the differentiable training attention
-    with ``dropout_rate`` on the probabilities; without, the serving one.
+    (B, H, T, Dh) of the table's ``heads``. Returns (B, H, T, Dh) float32.
+    With ``seed`` (a one-element int32 tensor) it is the differentiable
+    training attention with ``dropout_rate`` on the probabilities, its
+    dropout hash at batch b_off + b and head h_off + h (a mesh rank's
+    offsets); without, the serving one.
 
     T is padded up to a multiple of ATTN_TILE (192 -> 256): pad keys are
     masked, pad query rows sliced off, and the relative window is taken at
@@ -248,9 +281,10 @@ def relpos_self_attention(q, k, v, relpos: LearnedRelativePositionalBias,
         pad = (0, 0, 0, Tp - T)
         q, k, v = (nn.functional.pad(t, pad) for t in (q, k, v))
         kp = nn.functional.pad(kp, (0, Tp - T), value=True)
-    used, oob = relpos.window(Tp)
+    used, oob = relpos.window(Tp, heads)
     if seed is None:
         o = flash_attention_relpos(q, k, v, used.to(q.dtype), oob, kp)
     else:
-        o = flash_attention_relpos_train(q, k, v, used.to(q.dtype), oob, kp, dropout_rate, seed)
+        o = flash_attention_relpos_train(q, k, v, used.to(q.dtype), oob, kp, dropout_rate, seed,
+                                         b_off, h_off)
     return o[:, :, :T]

@@ -82,13 +82,22 @@ class EMGModel(nn.Module):
     """The full model, built on ``device`` (default ``"cuda"``; raises
     without a card unless ``"cpu"`` is asked for). Weights are drawn from
     ``generator`` (default: a ``torch.Generator`` seeded with 0) on the CPU,
-    so one seed gives the same model on every device."""
+    so one seed gives the same model on every device.
+
+    On a device mesh (``parallel/mesh.py::shard_params``) the packed rows
+    and the utterances are the rank's blocks of the batch: the CNN runs on
+    its rows, its output is all-gathered over the data axis, and the rank
+    takes its utterances by their global offsets; the encoder and decoder
+    split heads and feed-forwards over the model axis, and under
+    ``sequence_shard`` the encoder stream's time too. ``cfg.sequence_shard``
+    acts only there, with a model axis over 1 (as in the JAX package, which
+    applies it through the mesh); on one device it changes nothing."""
+
+    mesh = None  # the device mesh, set by parallel/mesh.py::shard_params
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.sequence_shard:
-            raise NotImplementedError("sequence_shard is not yet ported")
         if cfg.remat:
             raise NotImplementedError("remat (rematerialized encoder layers) is not yet ported")
         device = resolve_device(device)
@@ -169,6 +178,9 @@ class EMGModel(nn.Module):
             x = shift_rows(x, draw_shift(generator, x.device))
         x = self.conv_blocks(x, n_rows, self.dtype)
         x = linear(self.w_raw_in, x)  # (N, chunk/8, D)
+        if self.mesh is not None:
+            # every data rank's rows: the utterances' offsets are global
+            x = self.mesh.gather_data(x)
         flat = x.reshape(-1, x.shape[-1])
         src, src_pad_mask = gather_utterances(flat, offsets, lengths, max_frames)
         memory = self.transformerEncoder(src.to(self.dtype), src_pad_mask, generator).float()

@@ -36,7 +36,13 @@ class PositionalEncoding(nn.Module):
     PositionalEncoding indexes ``pe[:x.size(0)]`` assuming seq-first
     (transformer.py:432-434), so every position of batch row b receives the
     constant ``pe[b]``. Converted reference checkpoints need this mode.
+
+    On a device mesh (``mesh`` set) x holds the rank's batch rows: batch
+    mode adds pe[b] at their global index, and dropout slices the global
+    mask.
     """
+
+    mesh = None  # the device mesh, set by parallel/mesh.py::shard_params
 
     def __init__(self, d_model: int, max_len: int = 5000, index_axis: str = "position",
                  dropout: float = 0.0):
@@ -55,13 +61,15 @@ class PositionalEncoding(nn.Module):
         # x: (B, T, D)
         B, T = x.shape[0], x.shape[1]
         table = self.table
+        b0 = self.mesh.data_index * B if self.mesh is not None else 0
         if self.index_axis == "batch":
-            if B >= self.max_len:
+            if b0 + B >= self.max_len:
                 raise ValueError("batch too large for the positional encoding")
-            pe = table[:B][:, None, :]  # (B, 1, D): constant per batch row
+            pe = table[b0:b0 + B][:, None, :]  # (B, 1, D): constant per batch row
         else:
             if T >= self.max_len:
                 raise ValueError("sequence too long for the positional encoding")
             pe = table[None, :T, :]
         x = x + (1.0 / self.d_model) * pe.to(x.dtype)
-        return dropout(x, self.dropout, generator, self.training)
+        shard = self.mesh.batch_shard(B) if self.mesh is not None else ()
+        return dropout(x, self.dropout, generator, self.training, shard)

@@ -28,7 +28,15 @@ class MaskedBatchNorm(nn.Module):
     row, so channels with |mean| >> std do not cancel in E[x^2] - E[x]^2.
     Serving uses the running statistics. The output returns at the input
     dtype, so a bfloat16 conv stream stays bfloat16.
+
+    On a device mesh (``mesh`` set) x is the rank's block of the packed
+    rows, and the statistics are the global ones, as in JAX's global view:
+    the shift is data rank 0's row 0 (the global row 0), the two sums are
+    summed over the data axis and divided by the global valid count, so
+    every rank normalizes alike and keeps equal running statistics.
     """
+
+    mesh = None  # the device mesh, set by parallel/mesh.py::shard_params
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -48,10 +56,21 @@ class MaskedBatchNorm(nn.Module):
             xf = x.float()
             count = float(max(n_valid_rows * L, 1))
             c = xf[0].mean(dim=1)  # (C,) shift from row 0
-            rows = (torch.arange(N, device=x.device) < n_valid_rows)[:, None, None]
+            mesh = self.mesh if self.mesh is not None and self.mesh.data > 1 else None
+            first = mesh.data_index * N if mesh is not None else 0  # global index of row 0
+            if mesh is not None:
+                # c * 0, not a fresh zero: every rank's sum must be in the graph,
+                # or one rank would skip the backward all-reduce
+                c = mesh.sum_over_data(c if first == 0 else c * 0.0)
+            rows = (torch.arange(N, device=x.device) < n_valid_rows - first)[:, None, None]
             xm = torch.where(rows, xf - c[None, :, None], 0.0)
-            mean_s = xm.sum(dim=(0, 2)) / count
-            sq = (xm * xm).sum(dim=(0, 2)) / count
+            if mesh is None:
+                mean_s = xm.sum(dim=(0, 2)) / count
+                sq = (xm * xm).sum(dim=(0, 2)) / count
+            else:
+                sums = mesh.sum_over_data(torch.stack([xm.sum(dim=(0, 2)),
+                                                       (xm * xm).sum(dim=(0, 2))]))
+                mean_s, sq = sums[0] / count, sums[1] / count
             var = torch.clamp(sq - mean_s * mean_s, min=0.0)
             mean = mean_s + c
             with torch.no_grad():

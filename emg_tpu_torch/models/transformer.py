@@ -11,6 +11,18 @@ dropout at ``dropout``, each mask drawn from the ``generator`` passed to
 ``forward``. Parameter names follow the reference
 (``layers.{i}.self_attn``, ``linear1``, ``norm1``, ...).
 
+On a device mesh (``parallel/mesh.py::shard_params``) each attention and
+feed-forward block is split over the model axis, Megatron's layout:
+``linear1`` column-parallel (its rows of the weight and of the bias),
+``linear2`` row-parallel (its columns; the bias added once, after the
+sum), the attention by heads. A block takes its input in through
+``block_in`` and sums its partial output through ``block_out``: one
+all-reduce a block, or under ``sequence_shard`` (encoder only) an
+all-gather of the time shards in and a reduce-scatter out, so LayerNorm,
+residual and dropout run on the rank's time shard. Dropout masks are drawn
+at the unsharded shape and sliced to the rank's batch rows, time shard and
+hidden columns (``attention.dropout``'s ``shard``).
+
 LayerNorm arithmetic stays float32 (float32 parameters; a bfloat16
 mean of squares is lossy); the stream returns to the compute dtype after
 each norm. Linear layers run at the stream dtype with float32 parameters
@@ -50,12 +62,41 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch
 
 
 class _FeedForwardMixin:
-    def feed_forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        h = F.relu(linear(self.linear1, x))
-        return linear(self.linear2, self.drop(h, generator))
+    mesh = None  # the device mesh, set by parallel/mesh.py::shard_params
+    sequence_shard = False  # the stream between blocks is the rank's time shard
 
-    def drop(self, x: torch.Tensor, generator) -> torch.Tensor:
-        return dropout(x, self.dropout, generator, self.training)
+    def block_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A block's input, whole on every model rank."""
+        if self.mesh is None:
+            return x
+        return self.mesh.gather_seq(x) if self.sequence_shard else self.mesh.copy_to_model(x)
+
+    def block_out(self, x: torch.Tensor) -> torch.Tensor:
+        """A block's partial output summed over the model axis (under
+        sequence_shard, the rank's time shard of the sum)."""
+        if self.mesh is None:
+            return x
+        return self.mesh.scatter_seq(x) if self.sequence_shard else self.mesh.reduce_from_model(x)
+
+    def feed_forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        h = F.relu(linear(self.linear1, self.block_in(x)))
+        h = self.drop(h, generator, hidden=True)
+        if self.mesh is None or self.mesh.model == 1:
+            return linear(self.linear2, h)
+        out = self.block_out(F.linear(h, weight_as(self.linear2.weight, h.dtype)))
+        return out + self.linear2.bias.to(out.dtype)
+
+    def drop(self, x: torch.Tensor, generator, hidden: bool = False) -> torch.Tensor:
+        """Dropout on the stream (B, T, D) or, ``hidden``, the feed-forward
+        hidden layer (B, T, FF) whose columns the model axis splits."""
+        shard = ()
+        if self.mesh is not None:
+            shard = self.mesh.batch_shard(x.shape[0])
+            if hidden:
+                shard += self.mesh.model_shard(x.shape[-1], dim=x.dim() - 1)
+            elif self.sequence_shard:
+                shard += self.mesh.model_shard(x.shape[1], dim=1)
+        return dropout(x, self.dropout, generator, self.training, shard)
 
 
 class TransformerEncoderLayer(nn.Module, _FeedForwardMixin):
@@ -77,10 +118,11 @@ class TransformerEncoderLayer(nn.Module, _FeedForwardMixin):
     def forward(self, src: torch.Tensor, src_padding_mask: torch.Tensor,
                 generator=None) -> torch.Tensor:
         cdt = src.dtype
-        attn = self.self_attn(
-            src, src, key_padding_mask=src_padding_mask,
+        x = self.block_in(src)
+        attn = self.block_out(self.self_attn(
+            x, x, key_padding_mask=src_padding_mask,
             query_padding_mask=src_padding_mask, generator=generator,
-        )
+        ))
         src = layer_norm(self.norm1, src + self.drop(attn, generator), cdt)
         ff = self.feed_forward(src, generator)
         return layer_norm(self.norm2, src + self.drop(ff, generator), cdt)
@@ -99,14 +141,18 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask, generator=None):
+        """``memory`` has entered the model axis's split work already
+        (``TransformerDecoder.forward``)."""
         cdt = tgt.dtype
-        sa = self.self_attn(
-            tgt, tgt, key_padding_mask=tgt_padding_mask,
+        x = self.block_in(tgt)
+        sa = self.block_out(self.self_attn(
+            x, x, key_padding_mask=tgt_padding_mask,
             query_padding_mask=tgt_padding_mask, causal=True, generator=generator,
-        )
+        ))
         tgt = layer_norm(self.norm1, tgt + self.drop(sa, generator), cdt)
-        ca = self.multihead_attn(tgt, memory, key_padding_mask=memory_padding_mask,
-                                 generator=generator)
+        ca = self.block_out(self.multihead_attn(self.block_in(tgt), memory,
+                                                key_padding_mask=memory_padding_mask,
+                                                generator=generator))
         tgt = layer_norm(self.norm2, tgt + self.drop(ca, generator), cdt)
         ff = self.feed_forward(tgt, generator)
         return layer_norm(self.norm3, tgt + self.drop(ff, generator), cdt)
@@ -155,6 +201,9 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
 
 
 class TransformerEncoder(nn.Module):
+    mesh = None
+    sequence_shard = False  # split the stream's time over the model axis
+
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
                  relative_positional_distance: int, dropout: float = 0.0,
                  use_flash: bool = False):
@@ -166,12 +215,19 @@ class TransformerEncoder(nn.Module):
         ])
 
     def forward(self, src, src_padding_mask, generator=None):
+        """src (B, T, D) -> (B, T, D); under sequence_shard the layers run
+        on the rank's time shard, whole again on return."""
+        seq = self.mesh is not None and self.sequence_shard
+        if seq:
+            src = self.mesh.split_seq(src)
         for layer in self.layers:
             src = layer(src, src_padding_mask, generator)
-        return src
+        return self.mesh.gather_seq_replicated(src) if seq else src
 
 
 class TransformerDecoder(nn.Module):
+    mesh = None
+
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
                  dropout: float = 0.0):
         super().__init__()
@@ -181,6 +237,10 @@ class TransformerDecoder(nn.Module):
         ])
 
     def forward(self, tgt, memory, tgt_padding_mask, memory_padding_mask, generator=None):
+        if self.mesh is not None:
+            # every layer's cross-attention reads the memory: one entry into
+            # the split work sums their gradients over the model axis once
+            memory = self.mesh.copy_to_model(memory)
         for layer in self.layers:
             tgt = layer(tgt, memory, tgt_padding_mask, memory_padding_mask, generator)
         return tgt

@@ -47,9 +47,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # training attention: tensor pointers, (B, H, T, Dh, keep threshold),
-# keep probability, stream
-_TRAIN_FWD = [_P] * 9 + [_I] * 5 + [_F, _P]
-_TRAIN_BWD = [_P] * 12 + [_I] * 5 + [_F, _P]
+# keep probability, the hash's (batch, head) offsets, stream
+_TRAIN_FWD = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]
+_TRAIN_BWD = [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P]
 # argument types of every C entry point, by library
 SIGNATURES = {
     "flash_attention_relpos_train": {

@@ -17,7 +17,7 @@ extern "C" int flash_attention_relpos_f32(const float* q, const float* k,
                                           float* out, int B, int H, int T,
                                           int Dh, cudaStream_t stream) {
   return fwd::launch<float, false>(q, k, v, used, oob, key_pad, nullptr, out, nullptr, B, H, T,
-                                   Dh, kKeepAll, 1.0f, stream);
+                                   Dh, kKeepAll, 1.0f, 0u, 0u, stream);
 }
 
 extern "C" int flash_attention_relpos_bf16(const __nv_bfloat16* q,
@@ -29,7 +29,7 @@ extern "C" int flash_attention_relpos_bf16(const __nv_bfloat16* q,
                                            float* out, int B, int H, int T,
                                            int Dh, cudaStream_t stream) {
   return fwd::launch<__nv_bfloat16, false>(q, k, v, used, oob, key_pad, nullptr, out, nullptr, B,
-                                           H, T, Dh, kKeepAll, 1.0f, stream);
+                                           H, T, Dh, kKeepAll, 1.0f, 0u, 0u, stream);
 }
 
 extern "C" const char* flash_attention_relpos_error_string(int code) {

@@ -55,15 +55,23 @@
 #include "flash_bwd_relpos.cuh"
 #include "flash_fwd_relpos.cuh"
 
+// Every entry point takes b_off and h_off, added to the block's batch and
+// head in the keep hash: a rank that holds batch rows [b_off, b_off + B)
+// and heads [h_off, h_off + H) of a mesh-sharded step draws the mask that
+// the unsharded step draws for them. Offsets of 0 give the unsharded bits.
+
 namespace {
 
 template <typename T>
 int launch_fwd(const T* q, const T* k, const T* v, const T* used,
                const float* oob, const unsigned char* key_pad, const int* seed,
                float* out, float* lse, int B, int H, int Tn, int Dh,
-               int thresh, float keep_prob, cudaStream_t stream) {
+               int thresh, float keep_prob, int b_off, int h_off,
+               cudaStream_t stream) {
   return fwd::launch<T, true>(q, k, v, used, oob, key_pad, seed, out, lse, B, H, Tn, Dh,
-                              static_cast<uint32_t>(thresh), keep_prob, stream);
+                              static_cast<uint32_t>(thresh), keep_prob,
+                              static_cast<uint32_t>(b_off), static_cast<uint32_t>(h_off),
+                              stream);
 }
 
 template <typename T>
@@ -71,9 +79,10 @@ int launch_dq(const T* q, const T* k, const T* v, const T* used,
               const float* oob, const unsigned char* key_pad, const int* seed,
               const T* dout, const float* lse, const float* delta, float* dq,
               float* dused, int B, int H, int Tn, int Dh, int thresh,
-              float keep_prob, cudaStream_t stream) {
+              float keep_prob, int b_off, int h_off, cudaStream_t stream) {
   return bwd::launch_dq<T>(q, k, v, used, oob, key_pad, seed, dout, lse, delta, dq, dused, B, H,
-                           Tn, Dh, static_cast<uint32_t>(thresh), keep_prob, stream);
+                           Tn, Dh, static_cast<uint32_t>(thresh), keep_prob,
+                           static_cast<uint32_t>(b_off), static_cast<uint32_t>(h_off), stream);
 }
 
 template <typename T>
@@ -81,9 +90,10 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* used,
                const float* oob, const unsigned char* key_pad, const int* seed,
                const T* dout, const float* lse, const float* delta, float* dk,
                float* dv, int B, int H, int Tn, int Dh, int thresh,
-               float keep_prob, cudaStream_t stream) {
+               float keep_prob, int b_off, int h_off, cudaStream_t stream) {
   return bwd::launch_dkv<T>(q, k, v, used, oob, key_pad, seed, dout, lse, delta, dk, dv, B, H,
-                            Tn, Dh, static_cast<uint32_t>(thresh), keep_prob, stream);
+                            Tn, Dh, static_cast<uint32_t>(thresh), keep_prob,
+                            static_cast<uint32_t>(b_off), static_cast<uint32_t>(h_off), stream);
 }
 
 }  // namespace
@@ -92,10 +102,10 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* used,
   extern "C" int NAME(const T* q, const T* k, const T* v, const T* used,     \
                       const float* oob, const unsigned char* key_pad,         \
                       const int* seed, float* out, float* lse, int B, int H,  \
-                      int Tn, int Dh, int thresh, float keep_prob,            \
-                      cudaStream_t stream) {                                  \
+                      int Tn, int Dh, int thresh, float keep_prob, int b_off, \
+                      int h_off, cudaStream_t stream) {                       \
     return launch_fwd<T>(q, k, v, used, oob, key_pad, seed, out, lse, B, H,   \
-                         Tn, Dh, thresh, keep_prob, stream);                  \
+                         Tn, Dh, thresh, keep_prob, b_off, h_off, stream);    \
   }
 
 #define BWD_ENTRY(NAME, LAUNCH, T)                                            \
@@ -103,10 +113,11 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* used,
                       const float* oob, const unsigned char* key_pad,         \
                       const int* seed, const T* dout, const float* lse,       \
                       const float* delta, float* g1, float* g2, int B, int H, \
-                      int Tn, int Dh, int thresh, float keep_prob,            \
-                      cudaStream_t stream) {                                  \
+                      int Tn, int Dh, int thresh, float keep_prob, int b_off, \
+                      int h_off, cudaStream_t stream) {                       \
     return LAUNCH<T>(q, k, v, used, oob, key_pad, seed, dout, lse, delta, g1, \
-                     g2, B, H, Tn, Dh, thresh, keep_prob, stream);            \
+                     g2, B, H, Tn, Dh, thresh, keep_prob, b_off, h_off,       \
+                     stream);                                                 \
   }
 
 FWD_ENTRY(flash_train_fwd_f32, float)

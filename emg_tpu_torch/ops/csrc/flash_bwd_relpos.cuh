@@ -252,7 +252,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Tn, float scale, uint32_t thresh,
-                     float kept) {
+                     float kept, uint32_t b_off, uint32_t h_off) {
   using R = Rows<T, kDh>;
   using L = Layout<T, kDh, kSplit>;
   constexpr bool kF32 = std::is_same<T, float>::value;
@@ -341,8 +341,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     float pd[kN][4], ds[kN][4];
     recompute_pd_ds<T, kDh, kN>(pd, ds, fwd::smem_addr(Qs) + row_w, fwd::smem_addr(DOs) + row_w,
                                 fwd::smem_addr(Ks) + key_w, fwd::smem_addr(Vs) + key_w, band_w,
-                                rs, oob, kpb, lse_r, delta_r, qw, k0 + kw, b, h, Tn, scale, seed,
-                                thresh, kept, lane);
+                                rs, oob, kpb, lse_r, delta_r, qw, k0 + kw, b + b_off, h + h_off, Tn,
+                                scale, seed, thresh, kept, lane);
     __syncthreads();  // every warp is done with the band and its scratch
     if constexpr (L::kPrefetchBand) {
       if (qt + 1 < n_tiles) {
@@ -461,7 +461,8 @@ template <typename T, int kDh>
 cudaError_t launch_dkv_dh(const T* q, const T* k, const T* v, const T* used, const float* oob,
                           const unsigned char* key_pad, const int* seed, const T* dout,
                           const float* lse, const float* delta, float* dk, float* dv, int B,
-                          int H, int Tn, uint32_t thresh, float keep_prob, cudaStream_t stream) {
+                          int H, int Tn, uint32_t thresh, float keep_prob, uint32_t b_off,
+                         uint32_t h_off, cudaStream_t stream) {
   constexpr int kSplit = std::is_same<T, float>::value ? 2 : 1;
   constexpr size_t bytes = Layout<T, kDh, kSplit>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, kDh, kSplit>,
@@ -471,7 +472,7 @@ cudaError_t launch_dkv_dh(const T* q, const T* k, const T* v, const T* used, con
   const float scale = 1.0f / sqrtf(static_cast<float>(kDh));
   flash_bwd_dkv_kernel<T, kDh, kSplit><<<dim3(Tn / kBK, H, B), 128 * kSplit, bytes, stream>>>(
       q, k, v, used, oob, key_pad, seed, dout, lse, delta, dk, dv, H, Tn, scale, thresh,
-      1.0f / keep_prob);
+      1.0f / keep_prob, b_off, h_off);
   return cudaGetLastError();
 }
 
@@ -480,7 +481,8 @@ template <typename T>
 int launch_dkv(const T* q, const T* k, const T* v, const T* used, const float* oob,
                const unsigned char* key_pad, const int* seed, const T* dout, const float* lse,
                const float* delta, float* dk, float* dv, int B, int H, int Tn, int Dh,
-               uint32_t thresh, float keep_prob, cudaStream_t stream) {
+               uint32_t thresh, float keep_prob, uint32_t b_off, uint32_t h_off,
+               cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Tn <= 0 || Tn % kBQ != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -492,15 +494,15 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* used, const float* o
     case 64:
       return static_cast<int>(launch_dkv_dh<T, 64>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                    delta, dk, dv, B, H, Tn, thresh, keep_prob,
-                                                   stream));
+                                                   b_off, h_off, stream));
     case 96:
       return static_cast<int>(launch_dkv_dh<T, 96>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                    delta, dk, dv, B, H, Tn, thresh, keep_prob,
-                                                   stream));
+                                                   b_off, h_off, stream));
     case 128:
       return static_cast<int>(launch_dkv_dh<T, 128>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                     delta, dk, dv, B, H, Tn, thresh, keep_prob,
-                                                    stream));
+                                                    b_off, h_off, stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -544,7 +546,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     float* __restrict__ dused, int H, int Tn, float scale, uint32_t thresh,
-                    float kept) {
+                    float kept, uint32_t b_off, uint32_t h_off) {
   using R = Rows<T, kDh>;
   using L = DqLayout<T, kDh, kSplit>;
   constexpr bool kF32 = std::is_same<T, float>::value;
@@ -634,8 +636,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     float pd[kN][4], ds[kN][4];
     recompute_pd_ds<T, kDh, kN>(pd, ds, fwd::smem_addr(Qs) + row_w, fwd::smem_addr(DOs) + row_w,
                                 fwd::smem_addr(Ks) + key_w, fwd::smem_addr(Vs) + key_w, band_w,
-                                rs, oob, kpb, lse_r, delta_r, qw, k0 + kw, b, h, Tn, scale, seed,
-                                thresh, kept, lane);
+                                rs, oob, kpb, lse_r, delta_r, qw, k0 + kw, b + b_off, h + h_off, Tn,
+                                scale, seed, thresh, kept, lane);
     __syncthreads();  // every warp is done with V and its scratch: S_T takes their place
     for (int c = tid; c < static_cast<int>(L::kSTBytes / 16); c += kThreads) {
       reinterpret_cast<uint4*>(St)[c] = make_uint4(0u, 0u, 0u, 0u);
@@ -883,7 +885,8 @@ template <typename T, int kDh>
 cudaError_t launch_dq_dh(const T* q, const T* k, const T* v, const T* used, const float* oob,
                          const unsigned char* key_pad, const int* seed, const T* dout,
                          const float* lse, const float* delta, float* dq, float* dused, int B,
-                         int H, int Tn, uint32_t thresh, float keep_prob, cudaStream_t stream) {
+                         int H, int Tn, uint32_t thresh, float keep_prob, uint32_t b_off,
+                         uint32_t h_off, cudaStream_t stream) {
   constexpr int kSplit = std::is_same<T, float>::value ? EMG_K4_SPLIT_F32 : EMG_K4_SPLIT_BF16;
   constexpr size_t bytes = DqLayout<T, kDh, kSplit>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, kDh, kSplit>,
@@ -893,7 +896,7 @@ cudaError_t launch_dq_dh(const T* q, const T* k, const T* v, const T* used, cons
   const float scale = 1.0f / sqrtf(static_cast<float>(kDh));
   flash_bwd_dq_kernel<T, kDh, kSplit><<<dim3(Tn / kBQ, H, B), 128 * kSplit, bytes, stream>>>(
       q, k, v, used, oob, key_pad, seed, dout, lse, delta, dq, dused, H, Tn, scale, thresh,
-      1.0f / keep_prob);
+      1.0f / keep_prob, b_off, h_off);
   return cudaGetLastError();
 }
 
@@ -903,7 +906,8 @@ template <typename T>
 int launch_dq(const T* q, const T* k, const T* v, const T* used, const float* oob,
               const unsigned char* key_pad, const int* seed, const T* dout, const float* lse,
               const float* delta, float* dq, float* dused, int B, int H, int Tn, int Dh,
-              uint32_t thresh, float keep_prob, cudaStream_t stream) {
+              uint32_t thresh, float keep_prob, uint32_t b_off, uint32_t h_off,
+              cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Tn <= 0 || Tn % kBQ != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -915,15 +919,15 @@ int launch_dq(const T* q, const T* k, const T* v, const T* used, const float* oo
     case 64:
       return static_cast<int>(launch_dq_dh<T, 64>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                   delta, dq, dused, B, H, Tn, thresh, keep_prob,
-                                                  stream));
+                                                  b_off, h_off, stream));
     case 96:
       return static_cast<int>(launch_dq_dh<T, 96>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                   delta, dq, dused, B, H, Tn, thresh, keep_prob,
-                                                  stream));
+                                                  b_off, h_off, stream));
     case 128:
       return static_cast<int>(launch_dq_dh<T, 128>(q, k, v, used, oob, key_pad, seed, dout, lse,
                                                    delta, dq, dused, B, H, Tn, thresh, keep_prob,
-                                                   stream));
+                                                   b_off, h_off, stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

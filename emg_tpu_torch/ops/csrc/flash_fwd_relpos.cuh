@@ -65,7 +65,9 @@
 //   held in registers as mma A fragments (Dh / 16 or Dh / 8 steps of four
 //   registers).
 // - Dropout (K3): keep(seed, b, h, i, j) on each fragment element's global
-//   indices, the same mask as K4, K5, the plain version and JAX.
+//   indices, the same mask as K4, K5, the plain version and JAX. b and h
+//   are the block's plus b_off and h_off: a mesh rank that holds batch rows
+//   and heads from those offsets on draws the unsharded step's mask.
 // - Grid fill and occupancy. Blocks of kQW = 1 (16 rows, one warp), 4 (64
 //   rows) or, for float32 with T a multiple of 128, 8 (128 rows); wider
 //   blocks share each K, V and band tile among more warps. The launcher
@@ -249,7 +251,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const T* __restrict__ used, const float* __restrict__ oob,
                  const unsigned char* __restrict__ key_pad, const int* __restrict__ seed_ptr,
                  float* __restrict__ out, float* __restrict__ lse, int H, int Tn, float scale,
-                 uint32_t thresh, float keep_prob) {
+                 uint32_t thresh, float keep_prob, uint32_t b_off,
+                 uint32_t h_off) {
   using L = Layout<T, kQW, kDh>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kThreads = kQW * 32;
@@ -323,6 +326,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int band0 = 16 * (kQW - 1 - warp);  // its first row of the block's band
   float* rs = Rs + warp * 16 * kRS;
   const uint32_t seed = kTrain ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  // the dropout hash's batch and head: global under a mesh (the offsets of
+  // this rank's shard), the block's own (b, h) otherwise
+  const uint32_t bg = b + b_off, hg = h + h_off;
   const bool dropping = kTrain && thresh < kKeepAll;
 
   float o[kDn][4];
@@ -421,10 +427,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int n = 0; n < kKeyN; ++n) {
         const int j = k0 + 8 * n + 2 * t;
-        if (!keep(seed, b, h, i0, j, thresh)) s[n][0] = 0.f;
-        if (!keep(seed, b, h, i0, j + 1, thresh)) s[n][1] = 0.f;
-        if (!keep(seed, b, h, i0 + 8, j, thresh)) s[n][2] = 0.f;
-        if (!keep(seed, b, h, i0 + 8, j + 1, thresh)) s[n][3] = 0.f;
+        if (!keep(seed, bg, hg, i0, j, thresh)) s[n][0] = 0.f;
+        if (!keep(seed, bg, hg, i0, j + 1, thresh)) s[n][1] = 0.f;
+        if (!keep(seed, bg, hg, i0 + 8, j, thresh)) s[n][2] = 0.f;
+        if (!keep(seed, bg, hg, i0 + 8, j + 1, thresh)) s[n][3] = 0.f;
       }
     }
 
@@ -508,12 +514,13 @@ template <typename T, bool kTrain, int kQW, int kDh>
 cudaError_t launch_variant(const T* q, const T* k, const T* v, const T* used, const float* oob,
                            const unsigned char* key_pad, const int* seed, float* out, float* lse,
                            int B, int H, int Tn, float scale, uint32_t thresh, float keep_prob,
-                           cudaStream_t stream) {
+                           uint32_t b_off, uint32_t h_off, cudaStream_t stream) {
   cudaError_t err = set_smem_limit<T, kTrain, kQW, kDh>();
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<T, kTrain, kQW, kDh>
       <<<dim3(Tn / (16 * kQW), H, B), kQW * 32, Layout<T, kQW, kDh>::kBytes, stream>>>(
-          q, k, v, used, oob, key_pad, seed, out, lse, H, Tn, scale, thresh, keep_prob);
+          q, k, v, used, oob, key_pad, seed, out, lse, H, Tn, scale, thresh, keep_prob, b_off,
+          h_off);
   return cudaGetLastError();
 }
 
@@ -557,7 +564,7 @@ template <typename T, bool kTrain, int kDh>
 cudaError_t launch_dh(const T* q, const T* k, const T* v, const T* used, const float* oob,
                       const unsigned char* key_pad, const int* seed, float* out, float* lse,
                       int B, int H, int Tn, float scale, uint32_t thresh, float keep_prob,
-                      cudaStream_t stream) {
+                      uint32_t b_off, uint32_t h_off, cudaStream_t stream) {
   static_assert(kFits<T, 1, kDh>, "a 16-row block must fit");
   constexpr bool kWide = std::is_same<T, float>::value && kFits<T, 8, kDh>;
   int dev = 0, sms = 0;
@@ -573,17 +580,17 @@ cudaError_t launch_dh(const T* q, const T* k, const T* v, const T* used, const f
   if constexpr (kWide) {
     if (w8 < w4 && w8 < w1) {
       return launch_variant<T, kTrain, 8, kDh>(q, k, v, used, oob, key_pad, seed, out, lse, B, H,
-                                               Tn, scale, thresh, keep_prob, stream);
+                                               Tn, scale, thresh, keep_prob, b_off, h_off, stream);
     }
   }
   if constexpr (kFits<T, 4, kDh>) {
     if (w4 < w1) {
       return launch_variant<T, kTrain, 4, kDh>(q, k, v, used, oob, key_pad, seed, out, lse, B, H,
-                                               Tn, scale, thresh, keep_prob, stream);
+                                               Tn, scale, thresh, keep_prob, b_off, h_off, stream);
     }
   }
   return launch_variant<T, kTrain, 1, kDh>(q, k, v, used, oob, key_pad, seed, out, lse, B, H, Tn,
-                                           scale, thresh, keep_prob, stream);
+                                           scale, thresh, keep_prob, b_off, h_off, stream);
 }
 
 inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -593,7 +600,8 @@ inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 
 template <typename T, bool kTrain>
 int launch(const T* q, const T* k, const T* v, const T* used, const float* oob,
            const unsigned char* key_pad, const int* seed, float* out, float* lse, int B, int H,
-           int Tn, int Dh, uint32_t thresh, float keep_prob, cudaStream_t stream) {
+           int Tn, int Dh, uint32_t thresh, float keep_prob, uint32_t b_off, uint32_t h_off,
+           cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Tn <= 0 || Tn % kBK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -604,14 +612,16 @@ int launch(const T* q, const T* k, const T* v, const T* used, const float* oob,
   switch (Dh) {
     case 64:
       return static_cast<int>(launch_dh<T, kTrain, 64>(q, k, v, used, oob, key_pad, seed, out, lse,
-                                                       B, H, Tn, scale, thresh, keep_prob, stream));
+                                                       B, H, Tn, scale, thresh, keep_prob, b_off,
+                                                       h_off, stream));
     case 96:
       return static_cast<int>(launch_dh<T, kTrain, 96>(q, k, v, used, oob, key_pad, seed, out, lse,
-                                                       B, H, Tn, scale, thresh, keep_prob, stream));
+                                                       B, H, Tn, scale, thresh, keep_prob, b_off,
+                                                       h_off, stream));
     case 128:
       return static_cast<int>(launch_dh<T, kTrain, 128>(q, k, v, used, oob, key_pad, seed, out,
                                                         lse, B, H, Tn, scale, thresh, keep_prob,
-                                                        stream));
+                                                        b_off, h_off, stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -172,17 +172,20 @@ def keep_mask(seed, b, h, qg, kg, rate: float) -> torch.Tensor:
     return (x & ((1 << KEEP_BITS) - 1)) < keep_threshold(rate)
 
 
-def _keep(seed, shape, rate: float, device) -> torch.Tensor:
-    """(B, H, T, T) float32 0/1 keep mask over the global indices."""
+def _keep(seed, shape, rate: float, device, b_off: int = 0, h_off: int = 0) -> torch.Tensor:
+    """(B, H, T, T) float32 0/1 keep mask over the global indices: batch
+    b_off + b, head h_off + h (a mesh rank's shard of a larger batch and
+    head set), query and key."""
     B, H, T, _ = shape
-    idx = [torch.arange(n, device=device, dtype=torch.int64) for n in (B, H, T)]
-    return keep_mask(seed, idx[0][:, None, None, None], idx[1][None, :, None, None],
-                     idx[2][None, None, :, None], idx[2][None, None, None, :], rate).float()
+    b, h, t = (torch.arange(n, device=device, dtype=torch.int64) for n in (B, H, T))
+    return keep_mask(seed, (b + b_off)[:, None, None, None], (h + h_off)[None, :, None, None],
+                     t[None, None, :, None], t[None, None, None, :], rate).float()
 
 
-def _keep_scale(seed, shape, rate: float, device) -> torch.Tensor:
+def _keep_scale(seed, shape, rate: float, device, b_off: int = 0, h_off: int = 0) -> torch.Tensor:
     """keep / keep_prob, divided in float32 as the kernels do."""
-    return _keep(seed, shape, rate, device) / torch.tensor(1.0 - rate, dtype=torch.float32)
+    return (_keep(seed, shape, rate, device, b_off, h_off)
+            / torch.tensor(1.0 - rate, dtype=torch.float32))
 
 
 def _round_like(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -199,46 +202,50 @@ def _train_logits(q, k, used, oob, key_pad):
     return s + torch.where(key_pad, NEG_FILL, 0.0).to(torch.float32)[:, None, None, :]
 
 
-def flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate: float, seed):
+def flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate: float, seed, b_off: int = 0,
+                          h_off: int = 0):
     """Plain version of K3: (o, lse), o (B, H, T, Dh) float32 with
     o_i = sum_j keep * exp(s - m_i) v_j / (l_i * keep_prob), l_i the
     undropped normalizer, lse (B, H, T) = m + log l. Differentiable in q,
-    k, v and used (the row max enters only as a constant shift)."""
+    k, v and used (the row max enters only as a constant shift). The keep
+    hash sees batch b_off + b and head h_off + h."""
     s = _train_logits(q, k, used, oob, key_pad)
     m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        e = e * _keep(seed, s.shape, rate, q.device)
+        e = e * _keep(seed, s.shape, rate, q.device, b_off, h_off)
     e = _round_like(e, q.dtype)
     o = torch.einsum("bhqk,bhkd->bhqd", e, v.float()) / (l * (1.0 - rate))
     return o, (m + torch.log(l))[..., 0]
 
 
-def flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate: float, seed):
+def flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate: float, seed,
+                                       b_off: int = 0, h_off: int = 0):
     """The plain training attention: K3's plain forward, whose gradients
     autograd takes (the CPU path of ``flash_attention_relpos_train``)."""
-    return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed)[0]
+    return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)[0]
 
 
-def _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed):
+def _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, b_off=0, h_off=0):
     """p = exp(s - lse), keep / keep_prob (or None), and
     ds = p * (keep * (dO . v) / keep_prob - delta), as the backward kernels
     recompute them."""
     p = torch.exp(_train_logits(q, k, used, oob, key_pad) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
-    ks = _keep_scale(seed, p.shape, rate, q.device) if rate > 0.0 else None
+    ks = _keep_scale(seed, p.shape, rate, q.device, b_off, h_off) if rate > 0.0 else None
     if ks is not None:
         dp = dp * ks
     return p, ks, p * (dp - delta[..., None])
 
 
-def flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+def flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed,
+                             b_off: int = 0, h_off: int = 0):
     """Plain version of K4: (dq, d_used), float32. dq = scale * ds.k +
     dR.used and d_used[h] = sum_b dR^T.q, with dR the (B, H, T, 2T-1) map of
     ds to relative index j - i + T - 1."""
     B, H, T, Dh = q.shape
-    _, _, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    _, _, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, b_off, h_off)
     ds = _round_like(ds, q.dtype)
     dR = torch.zeros((B, H, T, 2 * T - 1), dtype=torch.float32, device=q.device)
     dR.scatter_(3, relative_index(T, q.device).expand(B, H, T, T), ds)
@@ -248,21 +255,25 @@ def flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate
     return dq, torch.einsum("bhqm,bhqd->hmd", dR, qf)
 
 
-def flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+def flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed,
+                              b_off: int = 0, h_off: int = 0):
     """Plain version of K5: (dk, dv), float32. dv = (keep * p /
     keep_prob)^T.dO, dk = scale * ds^T.q."""
     Dh = q.shape[-1]
-    p, ks, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+    p, ks, ds = _train_ds(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, b_off,
+                          h_off)
     pd = _round_like(p * ks if ks is not None else p, q.dtype)
     dv = torch.einsum("bhqk,bhqd->bhkd", pd, dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", _round_like(ds, q.dtype), q.float()) * (1.0 / Dh ** 0.5)
     return dk, dv
 
 
-def _check_train(q, k, v, used, oob, key_pad, rate, seed):
+def _check_train(q, k, v, used, oob, key_pad, rate, seed, b_off=0, h_off=0):
     _check(q, k, v, used, oob, key_pad)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    if not (0 <= b_off < 2 ** 31 and 0 <= h_off < 2 ** 31):
+        raise ValueError(f"the hash's offsets must be non-negative ints, got {b_off}, {h_off}")
     if (not isinstance(seed, torch.Tensor) or seed.numel() != 1 or seed.dtype != torch.int32
             or seed.device != q.device):
         raise ValueError("seed must be a one-element int32 tensor on the inputs' device")
@@ -285,14 +296,16 @@ def _bwd_check(q, dout, lse, delta):
             raise ValueError(f"{name} must be a float32 ({B}, {H}, {T}) tensor on q's device")
 
 
-def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed):
+def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed, b_off: int = 0,
+                    h_off: int = 0):
     """K3: (o (B, H, T, Dh), lse (B, H, T)), both float32. ``seed`` is a
-    one-element int32 tensor on the inputs' device. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (T a multiple of 64,
-    Dh 64, 96 or 128) or raises."""
-    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    one-element int32 tensor on the inputs' device; the dropout hash sees
+    batch b_off + b and head h_off + h (a mesh rank's offsets; 0 on one
+    device). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (T a multiple of 64, Dh 64, 96 or 128) or raises."""
+    _check_train(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
     if q.device.type == "cpu":
-        return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed)
+        return flash_train_fwd_plain(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
     q, k, v, oob, key_pad, seed = _cuda_ready("flash_train_fwd", q, q, k, v,
                                               oob.to(torch.float32), key_pad, seed)
     B, H, T, Dh = q.shape
@@ -304,13 +317,15 @@ def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed):
     fn = lib.flash_train_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_train_fwd_f32
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), used.data_ptr(), oob.data_ptr(),
               key_pad.data_ptr(), seed.data_ptr(), o.data_ptr(), lse.data_ptr(),
-              B, H, T, Dh, keep_threshold(rate), 1.0 - rate, build.current_stream_ptr(q.device))
+              B, H, T, Dh, keep_threshold(rate), 1.0 - rate, b_off, h_off,
+              build.current_stream_ptr(q.device))
     build.check("flash_attention_relpos_train", code)
     flash_train_fwd.launches += 1
     return o, lse
 
 
-def _launch_bwd(name, q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, g1, g2):
+def _launch_bwd(name, q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed, b_off, h_off,
+                g1, g2):
     q, k, v, oob, key_pad, seed, dout, lse, delta = _cuda_ready(
         name, q, q, k, v, oob.to(torch.float32), key_pad, seed, dout, lse, delta)
     used = used.to(q.dtype).contiguous()
@@ -320,45 +335,50 @@ def _launch_bwd(name, q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed,
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), used.data_ptr(), oob.data_ptr(),
               key_pad.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), g1.data_ptr(), g2.data_ptr(), B, H, T, Dh,
-              keep_threshold(rate), 1.0 - rate, build.current_stream_ptr(q.device))
+              keep_threshold(rate), 1.0 - rate, b_off, h_off, build.current_stream_ptr(q.device))
     build.check("flash_attention_relpos_train", code)
     return g1, g2
 
 
-def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed,
+                       b_off: int = 0, h_off: int = 0):
     """K4: (dq (B, H, T, Dh), d_used (H, 2T-1, Dh)), both float32. ``dout``
     is the output's gradient at the input dtype, ``lse`` K3's saved
     logsumexp, ``delta`` = rowsum(dout * o) (B, H, T) float32. On the card
     it is the tensor-core kernel of ``csrc/flash_bwd_relpos.cuh`` (T a
     multiple of 64, Dh 64, 96 or 128, as the forward). d_used sums over
-    blocks with atomics: its float32 rounding changes from run to run."""
-    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    blocks with atomics: its float32 rounding changes from run to run. The
+    hash's offsets are K3's."""
+    _check_train(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
     _bwd_check(q, dout, lse, delta)
     if q.device.type == "cpu":
-        return flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+        return flash_train_bwd_dq_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed,
+                                        b_off, h_off)
     B, H, T, Dh = q.shape
     _check_fwd_shape(T, Dh)
     dq = torch.empty((B, H, T, Dh), dtype=torch.float32, device=q.device)
     dused = torch.zeros((H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dq", q, k, v, used, oob, key_pad, dout, lse, delta,
-                      rate, seed, dq, dused)
+                      rate, seed, b_off, h_off, dq, dused)
     flash_train_bwd_dq.launches += 1
     return out
 
 
-def flash_train_bwd_dkv(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed):
+def flash_train_bwd_dkv(q, k, v, used, oob, key_pad, dout, lse, delta, rate: float, seed,
+                        b_off: int = 0, h_off: int = 0):
     """K5: (dk, dv), each (B, H, T, Dh) float32; arguments as K4's. On the
     card it is the tensor-core kernel of ``csrc/flash_bwd_relpos.cuh`` (T a
     multiple of 64, Dh 64, 96 or 128, as the forward)."""
-    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    _check_train(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
     _bwd_check(q, dout, lse, delta)
     if q.device.type == "cpu":
-        return flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate, seed)
+        return flash_train_bwd_dkv_plain(q, k, v, used, oob, key_pad, dout, lse, delta, rate,
+                                         seed, b_off, h_off)
     _check_fwd_shape(q.shape[2], q.shape[3])
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dkv", q, k, v, used, oob, key_pad, dout, lse, delta,
-                      rate, seed, dk, dv)
+                      rate, seed, b_off, h_off, dk, dv)
     flash_train_bwd_dkv.launches += 1
     return out
 
@@ -375,10 +395,10 @@ class FlashAttentionRelposTrain(torch.autograd.Function):
     d_used arrives at used's dtype, the rest at the input dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, used, oob, key_pad, seed, rate):
-        o, lse = flash_train_fwd(q, k, v, used, oob, key_pad, rate, seed)
+    def forward(ctx, q, k, v, used, oob, key_pad, seed, rate, b_off, h_off):
+        o, lse = flash_train_fwd(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
         ctx.save_for_backward(q, k, v, used, oob, key_pad, o, lse, seed)
-        ctx.rate = rate
+        ctx.rate, ctx.offsets = rate, (b_off, h_off)
         return o
 
     @staticmethod
@@ -388,24 +408,32 @@ class FlashAttentionRelposTrain(torch.autograd.Function):
         # delta uses the dropped output, as the JAX backward (:518)
         delta = (grad * o).sum(dim=-1)
         dout = grad.to(q.dtype)
-        args = (q, k, v, used, oob, key_pad, dout, lse, delta, ctx.rate, seed)
+        args = (q, k, v, used, oob, key_pad, dout, lse, delta, ctx.rate, seed, *ctx.offsets)
         dq, dused = flash_train_bwd_dq(*args)
         dk, dv = flash_train_bwd_dkv(*args)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dused.to(used.dtype),
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
-def flash_attention_relpos_train(q, k, v, used, oob, key_pad, dropout_rate: float, seed):
+def flash_attention_relpos_train(q, k, v, used, oob, key_pad, dropout_rate: float, seed,
+                                 b_off: int = 0, h_off: int = 0):
     """Differentiable training attention: q, k, v (B, H, T, Dh) float32 or
     bfloat16, used (H, 2T-1, Dh), oob (2T-1,), key_pad (B, T) bool,
     ``dropout_rate`` on the probabilities, ``seed`` a one-element int32
     tensor on the inputs' device. Returns o (B, H, T, Dh) float32.
 
+    Under a mesh the inputs are a rank's batch rows and heads, which start
+    at global batch ``b_off`` and head ``h_off``; the dropout hash takes
+    the global indices, so the rank draws its share of the unsharded
+    step's mask (offsets of 0: one device).
+
     A CPU tensor takes the plain version under autograd. A CUDA tensor goes
     through ``FlashAttentionRelposTrain`` (T a multiple of 64, Dh 64, 96 or
     128) or raises; there is no fallback."""
     rate = float(dropout_rate)
-    _check_train(q, k, v, used, oob, key_pad, rate, seed)
+    b_off, h_off = int(b_off), int(h_off)
+    _check_train(q, k, v, used, oob, key_pad, rate, seed, b_off, h_off)
     if q.device.type == "cpu":
-        return flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate, seed)
-    return FlashAttentionRelposTrain.apply(q, k, v, used, oob, key_pad, seed, rate)
+        return flash_attention_relpos_train_plain(q, k, v, used, oob, key_pad, rate, seed,
+                                                  b_off, h_off)
+    return FlashAttentionRelposTrain.apply(q, k, v, used, oob, key_pad, seed, rate, b_off, h_off)

@@ -23,6 +23,23 @@ The training recipes (``train/recipes.py``) act here, as in the JAX step
   but the first with probability ss_prob = max_prob * min(1, microbatches
   / max(ramp, 1)); then the train-mode pass on the mixed inputs.
 
+On a device mesh (the model put there by ``parallel/mesh.py::
+shard_params``) every rank runs this step on its block of the batch
+(``mesh.shard_batch``), as JAX's global-view step runs on its shards:
+
+- the loss is the global mean: each rank's losses are its real rows' sums
+  over the global example (CTC) and token (CE) counts, so the data ranks'
+  losses add up to the one-device loss (the metrics are that sum);
+- each microbatch's gradients are summed over the data axis, and for the
+  replicated parameters that split work feeds (``mesh.
+  grad_sums_over_model``) over the model axis too, before they join the
+  accumulated sums, so every rank holds the one-device sums (its blocks of
+  them) and AdamW applies alike everywhere;
+- the example count, and so the apply decision, is the global batch's;
+- every draw is made at the global shape from the same generator state on
+  every rank, and each rank keeps its slice (the recipes' draws here, the
+  dropouts in the model), so a sharded step draws one device's numbers.
+
 Randomness: each microbatch reseeds the caller's ``torch.Generator`` from
 (train.seed, microbatch counter), as the JAX step folds the counter into
 its key, so a resumed run draws what an uninterrupted one would. The step
@@ -54,14 +71,29 @@ def step_seed(seed: int, microbatches: int) -> int:
     return (int(seed) * 1_000_003 + int(microbatches)) % (1 << 63)
 
 
-def batch_to_device(batch: PackedBatch, device) -> Dict[str, object]:
+def batch_to_device(batch: PackedBatch, device, mesh=None) -> Dict[str, object]:
     """A host ``PackedBatch`` as device tensors, with the host integers the
     losses slice by (``n_examples`` and the true teacher length
-    ``seq_len``)."""
+    ``seq_len``). On a ``mesh`` the tensors are the rank's block of the
+    batch, and the integers stay global, with the rank's first utterance
+    (``row_offset``), the batch's CE token count (``n_tokens``) and its
+    global shapes (``packed_shape``, ``n_targets``) beside them."""
 
     def t(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    extra = {}
+    seq_len = int(np.max(batch.target_lengths)) - 1
+    if mesh is not None:
+        from emg_tpu_torch.parallel.mesh import shard_batch
+        from emg_tpu_torch.text.phonemes import PAD_ID
+
+        n = int(batch.n_examples)
+        local = shard_batch(batch, mesh)
+        extra = {"row_offset": local.row_offset,
+                 "n_tokens": int((np.asarray(batch.targets)[:n, 1:] != PAD_ID).sum()),
+                 "packed_shape": local.packed_shape, "n_targets": local.n_targets}
+        batch = local.batch
     return {
         "packed_raw": dequantize_packed_raw(t(batch.packed_raw)),
         "n_rows": int(batch.n_rows),
@@ -70,7 +102,8 @@ def batch_to_device(batch: PackedBatch, device) -> Dict[str, object]:
         "targets": t(batch.targets, torch.int64),
         "target_lengths": t(batch.target_lengths, torch.int64),
         "n_examples": int(batch.n_examples),
-        "seq_len": int(np.max(batch.target_lengths)) - 1,
+        "seq_len": seq_len,
+        **extra,
     }
 
 
@@ -86,11 +119,13 @@ def compute_losses(model, batch: Dict[str, object], max_frames: int,
         targets[:, :-1] if tgt_in is None else tgt_in, max_frames, generator,
     )
     n = batch["n_examples"]
+    row_offset = batch.get("row_offset")  # a mesh rank's share of the loss
     enc_loss = ctc_loss(
         torch.log_softmax(enc_logits.float(), dim=-1), batch["lengths"], targets[:, 1:],
-        (batch["target_lengths"] - 2).clamp(min=0), n,
+        (batch["target_lengths"] - 2).clamp(min=0), n, row_offset=row_offset,
     )
-    dec_loss = label_smoothing_loss(dec_logits, targets[:, 1:], n, batch["seq_len"], epsilon=0.1)
+    dec_loss = label_smoothing_loss(dec_logits, targets[:, 1:], n, batch["seq_len"], epsilon=0.1,
+                                    row_offset=row_offset, n_tokens=batch.get("n_tokens"))
     return dec_loss, enc_loss
 
 
@@ -144,6 +179,23 @@ def time_drop_span(total: int, start: torch.Tensor, length: torch.Tensor,
     return (pos >= start) & (pos < start + length) & do
 
 
+def local_draws(draws: RecipeDraws, dev: Dict[str, object]) -> RecipeDraws:
+    """A mesh rank's slice of draws made at the global batch's shapes: the
+    time-drop span over its packed rows, the scheduled-sampling mix over
+    its utterances (rotation and channel drop act on every row alike)."""
+    if "row_offset" not in dev:
+        return draws
+    N, L = dev["packed_raw"].shape[:2]
+    B = dev["targets"].shape[0]
+    first_row = N * (dev["row_offset"] // B)  # the rank's rows: its data index's block
+    return RecipeDraws(
+        rotation_shift=draws.rotation_shift, channel_keep=draws.channel_keep,
+        time_drop=(None if draws.time_drop is None
+                   else draws.time_drop[first_row * L: (first_row + N) * L]),
+        ss_mix=(None if draws.ss_mix is None
+                else draws.ss_mix[dev["row_offset"]: dev["row_offset"] + B]))
+
+
 def augment_packed(packed: torch.Tensor, draws: RecipeDraws) -> torch.Tensor:
     """The raw-EMG augmentations of ``draws`` on packed rows (N, L, C), in
     the JAX step's order: rotation, channel drop, time drop (the rows as
@@ -180,6 +232,37 @@ def scheduled_sampling_inputs(model, batch: Dict[str, object], max_frames: int,
     preds = dec_logits.argmax(dim=-1)
     pred_inputs = torch.cat([first[:, :1], preds[:, :-1]], dim=1)
     return torch.where(mix, pred_inputs, first)
+
+
+def backward_on_mesh(model, loss: torch.Tensor) -> None:
+    """The backward of a mesh rank's loss: this microbatch's gradients,
+    summed over the data axis (one all-reduce of them all) and, for the
+    replicated parameters that split work feeds, over the model axis (one
+    more), then added into the accumulated sums in ``.grad``."""
+    from emg_tpu_torch.parallel.mesh import flat_all_reduce, grad_sums_over_model
+
+    mesh = model.mesh
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    grads = flat_all_reduce([torch.zeros_like(p) if g is None else g
+                             for (_, p), g in zip(named, grads)], mesh, "data")
+    seq = model.transformerEncoder.sequence_shard
+    partial = [i for i, (name, _) in enumerate(named) if grad_sums_over_model(name, seq)]
+    for i, g in zip(partial, flat_all_reduce([grads[i] for i in partial], mesh, "model")):
+        grads[i] = g
+    with torch.no_grad():
+        for (_, p), g in zip(named, grads):
+            p.grad.add_(g)
+
+
+def reported(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Loss metrics of the whole batch: on a mesh, the data ranks' shares
+    summed (one all-reduce), the same value on every rank."""
+    if mesh is None:
+        return metrics
+    names = list(metrics)
+    total = mesh.all_reduce(torch.stack([metrics[k].detach() for k in names]), "data")
+    return {k: total[i] for i, k in enumerate(names)}
 
 
 class _Clock:
@@ -220,14 +303,18 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
     def train_step(state: TrainState, batch: PackedBatch, max_frames: int,
                    generator: torch.Generator) -> dict:
         model = state.model.train()
+        mesh = model.mesh
         clock = _Clock(step_times, model.device)
         generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
-        dev = batch_to_device(batch, model.device)
+        dev = batch_to_device(batch, model.device, mesh)
         targets = dev["targets"]
         ss_prob = cfg.scheduled_sampling_max_prob * min(
             1.0, state.microbatches / max(cfg.scheduled_sampling_ramp, 1))
-        draws = draw_recipe_randomness(generator, cfg, dev["packed_raw"].shape,
-                                       targets.shape[1] - 1, targets.shape[0], ss_prob)
+        draws = draw_recipe_randomness(generator, cfg,
+                                       dev.get("packed_shape", dev["packed_raw"].shape),
+                                       targets.shape[1] - 1,
+                                       dev.get("n_targets", targets.shape[0]), ss_prob)
+        draws = local_draws(draws, dev)
         dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
         tgt_in = None
         if draws.ss_mix is not None:
@@ -235,7 +322,10 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
         dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
         loss = combined_loss(dec_loss, enc_loss, alpha)
         clock.mark("forward")
-        loss.backward()
+        if mesh is None:
+            loss.backward()
+        else:
+            backward_on_mesh(model, loss)
         clock.mark("backward")
         n_accum = state.accum_examples + dev["n_examples"]
         lr = warmup_lr(state.cfg, state.microbatches)
@@ -253,8 +343,9 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
         clock.mark("optimizer")
         clock.close(examples=dev["n_examples"], frames=int(np.sum(batch.lengths)),
                     max_frames=max_frames, applied=applied)
-        return {"loss": loss.detach(), "dec_loss": dec_loss.detach(),
-                "enc_loss": enc_loss.detach(), "lr": lr, "applied": applied}
+        metrics = reported({"loss": loss.detach(), "dec_loss": dec_loss.detach(),
+                            "enc_loss": enc_loss.detach()}, mesh)
+        return {**metrics, "lr": lr, "applied": applied}
 
     return train_step
 
@@ -267,9 +358,9 @@ def make_eval_step(cfg):
     @torch.no_grad()
     def eval_step(model, batch: PackedBatch, max_frames: int) -> dict:
         model.eval()
-        dec_loss, enc_loss = compute_losses(model, batch_to_device(batch, model.device),
-                                            max_frames)
-        return {"loss": combined_loss(dec_loss, enc_loss, alpha), "dec_loss": dec_loss,
-                "enc_loss": enc_loss}
+        dec_loss, enc_loss = compute_losses(model, batch_to_device(batch, model.device,
+                                                                   model.mesh), max_frames)
+        return reported({"loss": combined_loss(dec_loss, enc_loss, alpha), "dec_loss": dec_loss,
+                         "enc_loss": enc_loss}, model.mesh)
 
     return eval_step

@@ -46,5 +46,21 @@ class MetricsWriter:
         self._jsonl.close()
 
 
+class NullMetricsWriter:
+    """The writer of a mesh rank other than 0: it writes nothing (rank 0
+    owns the files; the reported scalars are the same on every rank)."""
+
+    log_dir = ""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def default_log_dir(base: str = "logs/run") -> str:
     return os.path.join(base, datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))

@@ -15,11 +15,23 @@ JAX trainer's default), which the step dequantizes on the device; eval and
 PER batches stay float32, as in the JAX package. The JAX trainer's fused
 accumulation windows and prefetch threads are XLA dispatch devices that
 compute the same math; here each microbatch is its own step
-(``train.fused_window=True`` raises). The port trains on one device: a
-mesh wider than one (``parallel.data_axis`` not -1 or 1,
-``parallel.model_axis`` not 1) and ``parallel.coordinator_address`` raise
-too. ``--resume`` continues from the epoch after the one saved in
-``latest``.
+(``train.fused_window=True`` raises). ``--resume`` continues from the
+epoch after the one saved in ``latest``.
+
+Device mesh (``parallel.data_axis`` / ``parallel.model_axis``, as the JAX
+trainer's ``emg_tpu/train/trainer.py:66-123``): the trainer runs as one
+rank of a process group (``parallel/distributed.py``: the CLI launches the
+ranks), builds the mesh over its ranks (``parallel/mesh.py``; a mesh that
+does not cover them, or more cards than the host has, raises), pads every
+batch's rows and utterances to multiples of the data axis, shards the
+parameters before AdamW is built (moments per shard) and steps on its
+block of each batch (``parallel/train_step.py``), which computes what one
+device computes. ``parallel.sequence_shard`` splits the encoder stream's
+time over the model axis where that axis is over 1 (JAX ignores it
+otherwise, and so does this trainer). The evaluation loss is the global
+batch's; the PER report decodes with the whole model, gathered, on rank 0,
+which alone writes the log, the metrics and the checkpoints, each the file
+one device would write.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from emg_tpu_torch.config import Config
 from emg_tpu_torch.data.batching import (
@@ -43,11 +56,13 @@ from emg_tpu_torch.data.sampler import DynamicBatchSampler
 from emg_tpu_torch.decode.graphs import LoopRunner
 from emg_tpu_torch.decode.greedy import run_greedy
 from emg_tpu_torch.models.model import EMGModel
+from emg_tpu_torch.parallel import distributed
+from emg_tpu_torch.parallel.mesh import Mesh, full_state_dict, mesh_from_config, shard_params
 from emg_tpu_torch.parallel.train_step import make_eval_step, make_train_step
 from emg_tpu_torch.runtime import resolve_device
 from emg_tpu_torch.text.metrics import wer
 from emg_tpu_torch.train.checkpoint import CheckpointManager, load_weights, merge_params
-from emg_tpu_torch.train.metrics_writer import MetricsWriter
+from emg_tpu_torch.train.metrics_writer import MetricsWriter, NullMetricsWriter
 from emg_tpu_torch.train.state import TrainState, create_train_state
 
 log = logging.getLogger(__name__)
@@ -67,22 +82,15 @@ class Trainer:
         if config.train.fused_window:
             raise NotImplementedError("train.fused_window is not yet ported "
                                       "(per-microbatch steps compute the same math)")
-        if config.parallel.sequence_shard:
-            raise NotImplementedError("sequence_shard is not yet ported")
-        par = config.parallel
-        if par.data_axis not in (-1, 1) or par.model_axis != 1:
-            raise NotImplementedError(
-                f"a device mesh (parallel.data_axis={par.data_axis}, parallel.model_axis="
-                f"{par.model_axis}) is not yet ported: the port trains on one device")
-        if par.coordinator_address:
-            raise NotImplementedError("parallel.coordinator_address (multi-process training) "
-                                      "is not yet ported")
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = self._build_mesh()
         self.trainset = trainset
         self.devset = devset
-        self.writer = writer
-        self.ckpt = CheckpointManager(config.paths.output_directory)
+        # only rank 0 writes metrics (the reported losses are global sums,
+        # the same on every rank)
+        self.writer = writer if distributed.is_primary() else NullMetricsWriter()
+        self.ckpt = CheckpointManager(config.paths.output_directory, self.mesh)
         self.train_step = make_train_step(config.train, self.step_times)
         self.eval_step = make_eval_step(config.train)
         self.generator = torch.Generator(device=self.device)
@@ -91,12 +99,37 @@ class Trainer:
         # PER report, up to the checkpoint saves
         self.epoch_seconds: List[float] = []
 
+    def _build_mesh(self) -> Optional[Mesh]:
+        """The mesh over this process group's ranks, or None (one device).
+        Outside a process group a mesh of more than one device raises: its
+        ranks are processes, which the CLI launches."""
+        pcfg = self.config.parallel
+        if dist.is_initialized():
+            shape = mesh_from_config(pcfg, dist.get_world_size())
+            if shape is None:
+                return None
+            mesh = Mesh(shape, self.device)
+            log.info("parallel mesh: %d data x %d model over %d ranks (%s)",
+                     shape.data, shape.model, shape.size, dist.get_backend())
+            if pcfg.sequence_shard and shape.model == 1:
+                log.warning("parallel.sequence_shard acts on a model axis over 1: ignored")
+            return mesh
+        shape = mesh_from_config(pcfg, distributed.local_devices(pcfg, self.device))
+        if shape is not None:
+            raise RuntimeError(
+                f"a {shape.data}x{shape.model} mesh trains as {shape.size} processes: start it "
+                f"through the CLI (which launches them), torchrun or parallel.coordinator_address")
+        return None
+
     # -- batch assembly ----------------------------------------------------
-    def _prepare(self, dataset: EMGDataset, idxs: List[int]):
+    def _prepare(self, dataset: EMGDataset, idxs: List[int], sharded: bool = True):
+        """A batch as the step takes it: on a mesh (``sharded``) its rows and
+        utterances padded to multiples of the data axis."""
         batch = EMGDataset.collate_raw([dataset[i] for i in idxs])
+        dp = self.mesh.data if self.mesh is not None and sharded else 1
         pb = make_packed_batch(
             batch["raw_emg"], batch["lengths"], batch["phonemes_int"],
-            chunk=self.config.data.packed_chunk,
+            chunk=self.config.data.packed_chunk, row_multiple=dp, batch_multiple=dp,
         )
         return pb, bucket_up(max(batch["lengths"]), FRAME_BUCKETS), batch
 
@@ -111,6 +144,10 @@ class Trainer:
         if start:
             n = merge_params(model, load_weights(start))
             log.info("warm started from %s (%d tensors)", start, n)
+        if self.mesh is not None:
+            pcfg = self.config.parallel
+            shard_params(model, self.mesh,
+                         sequence_shard=pcfg.sequence_shard or self.config.model.sequence_shard)
         return create_train_state(model, self.config.train)
 
     # -- evaluation --------------------------------------------------------
@@ -127,16 +164,31 @@ class Trainer:
                 break
         return {k: v / max(steps, 1) for k, v in totals.items()}
 
+    def _whole_model(self, state: TrainState) -> Optional[EMGModel]:
+        """The model whole, in eval mode: the live one on one device; on a
+        mesh, on rank 0, a copy from the gathered weights (None elsewhere;
+        every rank takes part in the gather)."""
+        if self.mesh is None:
+            return state.model.eval()
+        weights = full_state_dict(state.model, self.mesh)
+        if not distributed.is_primary():
+            return None
+        model = EMGModel(self.config.model, device=self.device)
+        model.load_state_dict(weights)
+        return model.eval()
+
     def report_PER(self, state: TrainState, train_sampler, dev_sampler, epoch: int,
                    batch_idx: int) -> float:
-        model = state.model.eval()
-        # the live float32 model; its graphs live for this report only
+        model = self._whole_model(state)
+        if model is None:  # a mesh rank but the first: rank 0 decodes
+            return self.mesh.broadcast_object(None)
+        # the float32 model; its graphs live for this report only
         runner = LoopRunner(model)
 
         def decode_set(dataset, sampler, max_batches=None):
             preds, refs, correct, total = [], [], 0, 0
             for step, idxs in enumerate(sampler):
-                pb, max_frames, raw = self._prepare(dataset, idxs)
+                pb, max_frames, raw = self._prepare(dataset, idxs, sharded=False)
                 S_true = int(max(raw["phonemes_int_lengths"]))
                 strings, matrix = run_greedy(model, pb, max_frames, S_true - 1,
                                              pb.targets.shape[1] - 1, runner=runner)
@@ -170,6 +222,8 @@ class Trainer:
         w.add_scalar("Accuracy_Epoch/Training", round(100 * t_corr / max(t_total, 1), 1), epoch)
         w.add_scalar("Accuracy_Epoch/Evaluation", round(100 * d_corr / max(d_total, 1), 1), epoch)
         w.flush()
+        if self.mesh is not None:
+            eval_per = self.mesh.broadcast_object(eval_per)
         return eval_per
 
     # -- the loop ----------------------------------------------------------

@@ -281,9 +281,9 @@ def test_conformer_dropout_draw_order(monkeypatch):
     calls = []
     real = attention_module.dropout
 
-    def spy(x, rate, generator, training):
+    def spy(x, rate, generator, training, *shard):
         calls.append(tuple(x.shape))
-        return real(x, rate, generator, training)
+        return real(x, rate, generator, training, *shard)
 
     monkeypatch.setattr(attention_module, "dropout", spy)
     monkeypatch.setattr(conformer_module, "dropout", spy)

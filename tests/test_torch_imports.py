@@ -100,8 +100,9 @@ def test_lm_binding_builds_under_build_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py", ROOT / "chip_k4_warps.py",
-                                  ROOT / "chip_k1_layouts.py"],
-                         ids=["package", "chip_smoke", "chip_k4_warps", "chip_k1_layouts"])
+                                  ROOT / "chip_k1_layouts.py", ROOT / "chip_mesh_cards.py"],
+                         ids=["package", "chip_smoke", "chip_k4_warps", "chip_k1_layouts",
+                              "chip_mesh_cards"])
 def test_sources_import_no_jax(path):
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
