@@ -10,11 +10,13 @@ card:
      rows and utterances padded to multiples of 2) from the seeded
      flagship weights, against the single-rank step on card 0 (loss,
      whole gradient and each parameter's, as phase 8; BatchNorm statistics
-     equal on every rank), with each rank's K3-K5 launches and step ms;
-  2. trains one epoch through the CLI's train mode with
-     --parallel.data_axis 2 --parallel.model_axis 2 in the same four
-     ranks (each joins through cli.main, as torchrun's ranks do) and
-     serves the model.pt it wrote through the greedy path.
+     equal on every rank), with each rank's K3-K5 launches and warm step
+     CUDA-event ms, and K3-K5 at the inputs the ranks launched them with;
+  2. trains one epoch as a user would, `python -m emg_tpu_torch.cli ...
+     --parallel.data_axis 2 --parallel.model_axis 2` in a process of its
+     own, which launches its four ranks (one a card, NCCL), checks rank
+     0's log and checkpoints, and serves the model.pt it wrote through
+     the greedy path.
 It prints the cards' names and power limits, a JSON line of the results
 and {"ok": true, ...} last; a failed check, or fewer than four cards,
 exits non-zero.
@@ -62,9 +64,20 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         argv = chip_smoke.make_corpus(root)
         chip_smoke.mesh_steps(argv, root, record, geometries=CARD_GEOMETRIES, share_card=False,
-                              mesh_flags=("--parallel.data_axis", "2",
-                                          "--parallel.model_axis", "2"))
-        chip_smoke.mesh_cli_epoch(argv, root, record, world=4)
+                              cli_epoch=False)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "emg_tpu_torch.cli", *argv, *chip_smoke.MESH_EPOCH_ARGS,
+             "--parallel.data_axis", "2", "--parallel.model_axis", "2",
+             "--output_directory", os.path.join(root, "mesh_train")],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            raise RuntimeError(f"the CLI's mesh epoch exited {run.returncode}: "
+                               f"{run.stderr[-4000:]}")
+        epoch = chip_smoke.mesh_cli_epoch(argv, root, record, world=4,
+                                          own_launch_s=time.perf_counter() - t0)
+        if "2 data x 2 model" not in epoch["mesh_line"] or "nccl" not in epoch["mesh_line"]:
+            raise AssertionError(f"rank 0's log does not name a 2x2 NCCL mesh: {epoch}")
     record["total_s"] = time.perf_counter() - started
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -75,7 +88,7 @@ def main():
         name: dict(loss_rel_err=g["ranks"][0]["loss_rel_err"],
                    grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
                    k3_k5_launches_a_rank=[r["launches"]["flash_train_fwd"] for r in g["ranks"]],
-                   warm_step_ms=[r["warm_step_ms"] for r in g["ranks"]],
+                   warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],
                    single_rank_step_ms=g["ranks"][0]["single_rank_step_ms"])
         for name, g in steps.items()}, "cli_epoch": record["mesh_cli_epoch"],
         "total_s": record["total_s"]}, default=str))

@@ -103,12 +103,16 @@ Phases, in order; any failure exits non-zero:
      rank's attention through K3-K5 at its batch and head offsets, held
      against the single-rank step on the card (loss, whole gradient and
      each parameter's, as phase 8; BatchNorm statistics equal on both
-     ranks), with each rank's K3-K5 launches and step ms (the first and a
-     warm second); then the same two ranks run one epoch of the CLI's
-     train mode with --parallel.data_axis 2 (each joins through cli.main,
-     as ranks that torchrun starts do; K1-K5 counted a rank), whose
-     model.pt the greedy path serves. The ranks' collectives go through
-     the host (gloo): no NVLink is measured.
+     ranks), with each rank's K3-K5 launches and step ms (the first, and
+     a warm second's CUDA-event ms, started by every rank together); then
+     the same two ranks run one epoch of the CLI's train mode with
+     --parallel.data_axis 2 (each joins through cli.main, as ranks that
+     torchrun starts do; K1-K5 counted a rank), whose model.pt the greedy
+     path serves. After the ranks, K3-K5 at the shapes, offsets, key
+     padding and relative window the ranks' steps launched them with:
+     each rank's block of the whole launch at its offsets, bitwise that
+     launch's block, and their plain versions at the same offsets. The
+     ranks' collectives go through the host (gloo): no NVLink is measured.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -2409,14 +2413,52 @@ def grad_errors(got, ref, largest):
     return (diff_sq / ref_sq) ** 0.5, dict(sorted(worst.items(), key=lambda kv: -kv[1])[:5]), noise
 
 
-def k345_at_offsets(record) -> dict:
-    """K3-K5 on a block of a batch (batch rows 2-3, heads 4-7 of B=4, H=8,
-    T=256, Dh=96, dropout 0.2) at its offsets (2, 4): bitwise the whole
-    batch's launch's block, and their plain versions at the same offsets
-    to the phase 4 tolerance."""
+def k345_block(q, k, v, used, oob, kp, dout, rate, seed, b: slice, h: slice, whole) -> dict:
+    """K3-K5 on the block (batch rows ``b``, heads ``h``) of the inputs at
+    its offsets: bitwise ``whole``'s block (``k345_whole``), and the plain
+    versions at the same offsets within the phase 4 tolerance (their
+    backward fed the kernels' lse and delta)."""
     from emg_tpu_torch.ops import flash_attention as fa
 
-    result = {}
+    args = (*(t[b, h].contiguous() for t in (q, k, v)), used[h].contiguous(), oob,
+            kp[b].contiguous())
+    o, lse = fa.flash_train_fwd(*args, rate, seed, b.start, h.start)
+    delta = (dout[b, h].float() * o).sum(-1)
+    bwd = (*args, dout[b, h].contiguous(), lse, delta, rate, seed, b.start, h.start)
+    dq, d_used = fa.flash_train_bwd_dq(*bwd)
+    block = (o, lse, dq, *fa.flash_train_bwd_dkv(*bwd))
+    plain_dq, plain_d_used = fa.flash_train_bwd_dq_plain(*bwd)
+    plain = (fa.flash_train_fwd_plain(*args, rate, seed, b.start, h.start)[0], None, plain_dq,
+             *fa.flash_train_bwd_dkv_plain(*bwd))
+    names = ("o", "lse", "dq", "dk", "dv")
+    vs_plain = {n: rel_err(x, p) for n, x, p in zip(names, block, plain) if p is not None}
+    vs_plain["d_used"] = rel_err(d_used, plain_d_used)
+    return dict(B=int(q.shape[0]), H=int(q.shape[1]), T=int(q.shape[2]),
+                dtype=str(q.dtype).split(".")[-1], rows=[b.start, b.stop], heads=[h.start, h.stop],
+                block_bitwise={n: torch.equal(x, w[b, h]) for n, x, w in zip(names, block, whole)},
+                vs_plain=vs_plain)
+
+
+def k345_whole(q, k, v, used, oob, kp, dout, rate, seed):
+    """o, lse, dq, dk, dv of one K3-K5 launch over the whole inputs."""
+    from emg_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_train_fwd(q, k, v, used, oob, kp, rate, seed)
+    delta = (dout.float() * o).sum(-1)
+    bwd = (q, k, v, used, oob, kp, dout, lse, delta, rate, seed)
+    return (o, lse, fa.flash_train_bwd_dq(*bwd)[0], *fa.flash_train_bwd_dkv(*bwd))
+
+
+def k345_failed(rows) -> list:
+    return [r for r in rows if not all(r["block_bitwise"].values())
+            or max(r["vs_plain"].values()) > TRAIN_ATTN_TOL[getattr(torch, r["dtype"])]]
+
+
+def k345_at_offsets(record) -> dict:
+    """K3-K5 on a block of a batch (batch rows 2-3, heads 4-7 of B=4, H=8,
+    T=256, Dh=96, dropout 0.2), float32 and bfloat16, at its offsets
+    (2, 4), by ``k345_block``."""
+    rows = []
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=DEVICE).manual_seed(0)
         B, H, T, Dh, rate = 4, 8, 256, 96, 0.2
@@ -2427,44 +2469,102 @@ def k345_at_offsets(record) -> dict:
         kp = torch.zeros(B, T, dtype=torch.bool, device=DEVICE)
         kp[3, 200:] = True
         seed = torch.tensor([987], dtype=torch.int32, device=DEVICE)
-        o, lse = fa.flash_train_fwd(q, k, v, used, oob, kp, rate, seed)
-        delta = (dout.float() * o).sum(-1)
-        whole = (o, lse, fa.flash_train_bwd_dq(q, k, v, used, oob, kp, dout, lse, delta, rate,
-                                               seed)[0],
-                 *fa.flash_train_bwd_dkv(q, k, v, used, oob, kp, dout, lse, delta, rate, seed))
-        b, h = slice(2, 4), slice(4, 8)
-        args = (*(t[b, h].contiguous() for t in (q, k, v)), used[h].contiguous(), oob,
-                kp[b].contiguous())
-        bwd = (*args, dout[b, h].contiguous(), lse[b, h].contiguous(), delta[b, h].contiguous(),
-               rate, seed, 2, 4)
-        block = (*fa.flash_train_fwd(*args, rate, seed, 2, 4), fa.flash_train_bwd_dq(*bwd)[0],
-                 *fa.flash_train_bwd_dkv(*bwd))
-        plain = (*fa.flash_train_fwd_plain(*args, rate, seed, 2, 4),
-                 fa.flash_train_bwd_dq_plain(*bwd)[0], *fa.flash_train_bwd_dkv_plain(*bwd))
-        names = ("o", "lse", "dq", "dk", "dv")
-        result[str(dtype).split(".")[-1]] = dict(
-            block_bitwise={n: torch.equal(x, w[b, h]) for n, x, w in zip(names, block, whole)},
-            vs_plain={n: rel_err(x, p) for n, x, p in zip(names, block, plain) if n != "lse"})
-    record["k345_offsets"] = result
-    log(f"K3-K5 at batch and head offsets {json.dumps(result)}")
-    for dtype, r in result.items():
-        tol = TRAIN_ATTN_TOL[getattr(torch, dtype)]
-        if not all(r["block_bitwise"].values()) or max(r["vs_plain"].values()) > tol:
-            raise AssertionError(f"K3-K5 at offsets, {dtype}: {r}")
-    return result
+        inputs = (q, k, v, used, oob, kp, dout, rate, seed)
+        rows.append(k345_block(*inputs, slice(2, 4), slice(4, 8), k345_whole(*inputs)))
+    record["k345_offsets"] = rows
+    log(f"K3-K5 at batch and head offsets {json.dumps(rows)}")
+    if k345_failed(rows):
+        raise AssertionError(f"K3-K5 at offsets: {k345_failed(rows)}")
+    return rows
 
 
-def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv):
+def recording_launches(sink: list):
+    """Patch the encoder's training attention to keep each call's inputs
+    as the kernels get them: q's shape and dtype, the rate, the batch and
+    head offsets, and the relative window's mask, the key padding and the
+    seed tensors. The call itself is unchanged."""
+    from emg_tpu_torch.models import attention as attention_module
+
+    real = attention_module.flash_attention_relpos_train
+
+    def record(q, k, v, used, oob, kp, rate, seed, b_off=0, h_off=0):
+        sink.append(dict(shape=tuple(q.shape), dtype=str(q.dtype).split(".")[-1],
+                         rate=float(rate), b_off=int(b_off), h_off=int(h_off), oob=oob, kp=kp,
+                         seed=seed))
+        return real(q, k, v, used, oob, kp, rate, seed, b_off, h_off)
+    return mock.patch.object(attention_module, "flash_attention_relpos_train", record)
+
+
+def distinct_launches(calls: list) -> list:
+    """One of each distinct set of inputs (the seed aside; every encoder
+    layer of a step gives the same), its tensors on the host."""
+    seen = {}
+    for c in calls:
+        key = (c["shape"], c["dtype"], c["rate"], c["b_off"], c["h_off"],
+               c["oob"].cpu().numpy().tobytes(), c["kp"].cpu().numpy().tobytes())
+        seen.setdefault(key, {**c, **{n: c[n].cpu() for n in ("oob", "kp", "seed")}})
+    return list(seen.values())
+
+
+def k345_at_mesh_launches(out, geometries, world, record) -> list:
+    """K3-K5 at the shapes, offsets, key padding and relative window that
+    the ranks of each geometry launched them with (``recording_launches``):
+    the whole (data x B, model x H) launch, every rank's key padding in its
+    rows, and each rank's block of it at its offsets, by ``k345_block``
+    (fresh q, k, v, dout and table from a seeded generator)."""
+    rows = []
+    for name, data, model_axis, _ in geometries:
+        launches = [c for r in range(world)
+                    for c in torch.load(os.path.join(out, f"{name}.run0.{r}.launches.pt"))]
+        B, H, T, Dh = launches[0]["shape"]
+        Bg, Hg = B * data, H * model_axis
+        kp = torch.zeros(Bg, T, dtype=torch.bool)
+        for c in launches:
+            kp[c["b_off"]: c["b_off"] + B] = c["kp"]
+        for c in launches:
+            if not torch.equal(kp[c["b_off"]: c["b_off"] + B], c["kp"]):
+                raise AssertionError(f"{name}: the ranks' key padding disagrees")
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        dtype = getattr(torch, launches[0]["dtype"])
+        q, k, v, dout = (torch.randn(Bg, Hg, T, Dh, generator=g, device=DEVICE).to(dtype)
+                         for _ in range(4))
+        used = (torch.randn(Hg, 2 * T - 1, Dh, generator=g, device=DEVICE) * 0.1).to(dtype)
+        oob, seed, rate = launches[0]["oob"].to(DEVICE), launches[0]["seed"].to(DEVICE), \
+            launches[0]["rate"]
+        inputs = (q, k, v, used, oob, kp.to(DEVICE), dout, rate, seed)
+        whole = k345_whole(*inputs)
+        for c in launches:
+            if (c["shape"], c["dtype"], c["rate"]) != (launches[0]["shape"], launches[0]["dtype"],
+                                                      rate):
+                raise AssertionError(f"{name}: the ranks launched K3-K5 at different shapes")
+            row = k345_block(*inputs, slice(c["b_off"], c["b_off"] + B),
+                             slice(c["h_off"], c["h_off"] + H), whole)
+            rows.append(dict(row, geometry=name, offsets=[c["b_off"], c["h_off"]], rate=rate))
+        del whole, inputs, q, k, v, dout
+        torch.cuda.empty_cache()
+    record["k345_mesh_launches"] = rows
+    log(f"K3-K5 at the mesh's launches {json.dumps(rows)}")
+    if k345_failed(rows):
+        raise AssertionError(f"K3-K5 at the mesh's launches: {k345_failed(rows)}")
+    return rows
+
+
+def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv=None, seeds=(0,),
+                    patches=None):
     """A rank of a mesh (here two on card 0; one a card in
-    chip_mesh_cards.py): rank 0 first takes the single-rank step on its
-    card; then, for each geometry, every rank takes the sharded step from
-    the same seeded weights and generator seed (K3-K5 counted over it
-    alone), a second (warm) one for its time, and rank 0 holds the first's
-    gathered gradients against the single-rank step's. Each rank writes a
-    JSON and its BatchNorm statistics to ``out_dir``. Then the ranks run
-    the CLI's train mode on ``cli_argv``, as ranks that torchrun or a
-    coordinator started do (``cli.main`` joins their process group), with
-    the kernels counted over that run alone."""
+    chip_mesh_cards.py). For each seed s of ``seeds`` (run i): rank 0
+    takes the single-rank step from weights drawn from s, at train seed s;
+    then, for each geometry, every rank takes the sharded step from the
+    same weights and seed (K3-K5 counted over it alone, and its launches'
+    inputs kept), then, after a barrier that follows rank 0's check, a
+    second (warm) one for its CUDA-event time; rank 0 holds the first's
+    gathered gradients against the single-rank step's. Each rank writes
+    ``{geometry}.run{i}.{rank}`` files (a JSON, its BatchNorm statistics,
+    its K3-K5 launches) to ``out_dir``. A geometry's steps run under
+    ``patches[name]()`` where given (a mutation check's context). Then,
+    with ``cli_argv``, the ranks run the CLI's train mode on it, as ranks
+    that torchrun or a coordinator started do (``cli.main`` joins their
+    process group), with the kernels counted over that run alone."""
     import torch.distributed as dist
 
     from emg_tpu_torch.config import Config
@@ -2475,84 +2575,94 @@ def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv):
     from emg_tpu_torch.train.state import create_train_state
 
     rank, device = dist.get_rank(), rank_device(DEVICE)
-    # host-clock marks (seconds since the epoch, one clock for both ranks)
-    timeline = {"start": time.time()}
-    cfg = Config.from_args(cfg_argv)
-    step = make_train_step(cfg.train)
     counters = kernel_counters()
-    # the seeded weights, drawn once; each step starts from a copy
-    t0 = time.perf_counter()
-    base = EMGModel(cfg.model, device=device, generator=torch.Generator().manual_seed(0))
-    init_s = time.perf_counter() - t0
     # a process's first optimizer imports torch's compiler stack (~10 s on
     # the card's host): every rank pays it here, side by side, not while
     # another rank waits for it in a collective
     torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1, device=device))])
-    timeline["base_built"] = time.time()
-
-    def fresh_state(mesh=None, seq=False):
-        model = copy.deepcopy(base)
-        if mesh is not None:
-            shard_params(model, mesh, sequence_shard=seq)
-        return create_train_state(model, cfg.train)
-
-    def timed_step(state, mark=None):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        if mark:
-            timeline[mark] = time.time()
+    for run, seed in enumerate(seeds):
+        # host-clock marks (seconds since the epoch, one clock for all ranks)
+        timeline = {"start": time.time()}
+        cfg = Config.from_args(cfg_argv + ["--seed", str(seed)])
+        step = make_train_step(cfg.train)
+        # the seeded weights, drawn once; each step starts from a copy
         t0 = time.perf_counter()
-        start.record()
-        metrics = step(state, pb, max_frames, torch.Generator(device=device))
-        end.record()
-        torch.cuda.synchronize()
-        return metrics, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+        base = EMGModel(cfg.model, device=device, generator=torch.Generator().manual_seed(seed))
+        init_s = time.perf_counter() - t0
+        timeline["base_built"] = time.time()
 
-    ref = None
-    if rank == 0:
-        state = fresh_state()
-        metrics, ms, _ = timed_step(state)
-        ref = dict(loss=float(metrics["loss"]), ms=ms,
-                   grads={n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
-        del state
-    timeline["reference_done"] = time.time()
-    for name, data, model_axis, seq in geometries:
-        mesh = Mesh(MeshShape(data, model_axis), device)
-        timeline[f"{name}_mesh_built"] = time.time()
-        state = fresh_state(mesh, seq)
-        for fn in counters.values():
-            fn.launches = 0
-        metrics, ms, wall = timed_step(state, f"{name}_step_start")
-        timeline[f"{name}_step_end"] = time.time()
-        launches = {k: fn.launches for k, fn in counters.items()}
-        row = dict(rank=rank, loss=float(metrics["loss"]), launches=launches, step_ms=ms,
-                   step_wall_ms=wall, heads_a_rank=cfg.model.n_heads_encoder // model_axis,
-                   model_init_s=init_s, timeline=dict(timeline))
-        # the first step's gradients, whole (a collective), before the warm
-        # step adds into them
-        grads = {n: gather_full(n, p.grad.detach(), mesh) for n, p in
-                 state.model.named_parameters()}
-        if ref is not None:
-            largest = max(float(g.abs().max()) for g in ref["grads"].values())
-            norm_err, worst, noise = grad_errors(grads, ref["grads"], largest)
-            row.update(single_rank_loss=ref["loss"], single_rank_step_ms=ref["ms"],
-                       loss_rel_err=abs(row["loss"] - ref["loss"]) / abs(ref["loss"]),
-                       grad_norm_rel_err=norm_err, worst_grad_rel_err=worst,
-                       bn_fed_bias_err_of_largest=noise)
-        del grads
-        _, row["warm_step_ms"], row["warm_step_wall_ms"] = timed_step(state)
-        torch.save({n: b.detach().cpu() for n, b in state.model.named_buffers()
-                    if n.endswith(("running_mean", "running_var"))},
-                   os.path.join(out_dir, f"{name}.{rank}.stats.pt"))
-        with open(os.path.join(out_dir, f"{name}.{rank}.json"), "w") as f:
-            json.dump(row, f)
-        del state
+        def fresh_state(mesh=None, seq=False):
+            model = copy.deepcopy(base)
+            if mesh is not None:
+                shard_params(model, mesh, sequence_shard=seq)
+            return create_train_state(model, cfg.train)
+
+        def timed_step(state, mark=None):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            if mark:
+                timeline[mark] = time.time()
+            t0 = time.perf_counter()
+            start.record()
+            metrics = step(state, pb, max_frames, torch.Generator(device=device))
+            end.record()
+            torch.cuda.synchronize()
+            return metrics, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+        ref = None
+        if rank == 0:
+            state = fresh_state()
+            metrics, ms, _ = timed_step(state)
+            ref = dict(loss=float(metrics["loss"]), ms=ms,
+                       grads={n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
+            del state
+        timeline["reference_done"] = time.time()
+        for name, data, model_axis, seq in geometries:
+            tag = os.path.join(out_dir, f"{name}.run{run}.{rank}")
+            mesh = Mesh(MeshShape(data, model_axis), device)
+            timeline[f"{name}_mesh_built"] = time.time()
+            state = fresh_state(mesh, seq)
+            for fn in counters.values():
+                fn.launches = 0
+            calls = []
+            with (patches or {}).get(name, contextlib.nullcontext)(), recording_launches(calls):
+                metrics, ms, wall = timed_step(state, f"{name}_step_start")
+            timeline[f"{name}_step_end"] = time.time()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            torch.save(distinct_launches(calls), f"{tag}.launches.pt")
+            del calls
+            row = dict(rank=rank, seed=seed, loss=float(metrics["loss"]), launches=launches,
+                       step_ms=ms, step_wall_ms=wall,
+                       heads_a_rank=cfg.model.n_heads_encoder // model_axis,
+                       model_init_s=init_s, timeline=dict(timeline))
+            # the first step's gradients, whole (a collective), before the
+            # warm step adds into them
+            grads = {n: gather_full(n, p.grad.detach(), mesh) for n, p in
+                     state.model.named_parameters()}
+            if ref is not None:
+                largest = max(float(g.abs().max()) for g in ref["grads"].values())
+                norm_err, worst, noise = grad_errors(grads, ref["grads"], largest)
+                row.update(single_rank_loss=ref["loss"], single_rank_step_ms=ref["ms"],
+                           loss_rel_err=abs(row["loss"] - ref["loss"]) / abs(ref["loss"]),
+                           grad_norm_rel_err=norm_err, worst_grad_rel_err=worst,
+                           bn_fed_bias_err_of_largest=noise)
+            del grads
+            dist.barrier()  # every rank starts the warm step together
+            with (patches or {}).get(name, contextlib.nullcontext)():
+                _, row["warm_step_ms"], row["warm_step_wall_ms"] = timed_step(state)
+            torch.save({n: b.detach().cpu() for n, b in state.model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}, f"{tag}.stats.pt")
+            with open(f"{tag}.json", "w") as f:
+                json.dump(row, f)
+            del state
+            torch.cuda.empty_cache()
+        del base, ref
         torch.cuda.empty_cache()
+    if cli_argv is None:
+        return
 
     from emg_tpu_torch import cli
 
-    del base, ref
-    torch.cuda.empty_cache()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2563,12 +2673,42 @@ def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv):
         json.dump(epoch, f)
 
 
+def mesh_geometry_result(out, name, world, layers, run=0):
+    """What the ranks of one geometry wrote for run ``run``, and the list
+    of its failures against phase 8's bounds: the loss, the whole gradient
+    and each parameter's against the single-rank step, the ranks' losses
+    and BatchNorm statistics alike, K3-K5 launched once an encoder layer."""
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"{name}.run{run}.{r}.json")) as f:
+            ranks.append(json.load(f))
+    stats = [torch.load(os.path.join(out, f"{name}.run{run}.{r}.stats.pt")) for r in range(world)]
+    equal_stats = all(torch.equal(st[k], stats[0][k]) for st in stats[1:] for k in st)
+    result = dict(ranks=ranks, bn_stats_equal_on_ranks=equal_stats)
+    head, failures = ranks[0], []
+    if not (head["loss_rel_err"] <= STEP_LOSS_RTOL and head["grad_norm_rel_err"] <= STEP_NORM_TOL
+            and max(head["worst_grad_rel_err"].values()) <= STEP_GRAD_TOL
+            and head["bn_fed_bias_err_of_largest"] <= STEP_NOISE_TOL):
+        failures.append(f"{name}: the sharded step differs from the single-rank step")
+    if any(abs(r["loss"] - head["loss"]) > STEP_LOSS_RTOL * abs(head["loss"]) for r in ranks):
+        failures.append(f"{name}: the ranks report different losses")
+    if not equal_stats:
+        failures.append(f"{name}: BatchNorm statistics differ between the ranks")
+    for r in ranks:
+        for k in ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv"):
+            if r["launches"][k] != layers:
+                failures.append(f"{name}: rank {r['rank']} launched {k} "
+                                f"{r['launches'][k]} times, not {layers}")
+    return result, failures
+
+
 def mesh_steps(argv, root, record, geometries=MESH_GEOMETRIES, share_card=True,
-               mesh_flags=("--parallel.data_axis", "2")) -> dict:
-    """The sharded steps and CLI epoch of ``mesh_rank_steps`` (by default on
-    two ranks sharing card 0; else one rank a card over NCCL); the steps
-    are checked here from what the ranks wrote, the epoch by
-    ``mesh_cli_epoch``."""
+               mesh_flags=("--parallel.data_axis", "2"), cli_epoch=True) -> dict:
+    """The sharded steps of ``mesh_rank_steps`` (by default on two ranks
+    sharing card 0; else one rank a card over NCCL), then K3-K5 at the
+    inputs they launched with (``k345_at_mesh_launches``); with
+    ``cli_epoch`` the ranks then run the CLI epoch that ``mesh_cli_epoch``
+    checks. The steps are checked here from what the ranks wrote."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.parallel.distributed import launch
 
@@ -2583,48 +2723,33 @@ def mesh_steps(argv, root, record, geometries=MESH_GEOMETRIES, share_card=True,
     cli_argv = argv + MESH_EPOCH_ARGS + list(mesh_flags) + [
         "--device", DEVICE, "--output_directory", os.path.join(root, "mesh_train")]
     t0 = time.perf_counter()
-    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, geometries, cli_argv), world, DEVICE,
+    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, geometries,
+                             cli_argv if cli_epoch else None), world, DEVICE,
            share_card=share_card)
     result = dict(examples=len(idxs), max_frames=max_frames, rows=int(pb.packed_raw.shape[0]),
                   utterances=int(pb.lengths.shape[0]), launch_s=time.perf_counter() - t0,
                   geometries={})
-    layers = cfg.model.num_layers_encoder
     failures = []
     for name, *_ in geometries:
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(out, f"{name}.{r}.json")) as f:
-                ranks.append(json.load(f))
-        stats = [torch.load(os.path.join(out, f"{name}.{r}.stats.pt")) for r in range(world)]
-        equal_stats = all(torch.equal(st[k], stats[0][k]) for st in stats[1:] for k in st)
-        result["geometries"][name] = dict(ranks=ranks, bn_stats_equal_on_ranks=equal_stats)
-        head = ranks[0]
-        if not (head["loss_rel_err"] <= STEP_LOSS_RTOL and head["grad_norm_rel_err"] <= STEP_NORM_TOL
-                and max(head["worst_grad_rel_err"].values()) <= STEP_GRAD_TOL
-                and head["bn_fed_bias_err_of_largest"] <= STEP_NOISE_TOL):
-            failures.append(f"{name}: the sharded step differs from the single-rank step")
-        if any(abs(r["loss"] - head["loss"]) > STEP_LOSS_RTOL * abs(head["loss"]) for r in ranks):
-            failures.append(f"{name}: the ranks report different losses")
-        if not equal_stats:
-            failures.append(f"{name}: BatchNorm statistics differ between the ranks")
-        for r in ranks:
-            for k in ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv"):
-                if r["launches"][k] != layers:
-                    failures.append(f"{name}: rank {r['rank']} launched {k} "
-                                    f"{r['launches'][k]} times, not {layers}")
+        result["geometries"][name], failed = mesh_geometry_result(
+            out, name, world, cfg.model.num_layers_encoder)
+        failures += failed
     record["mesh_steps"] = result
     log(f"mesh steps {json.dumps(result)}")
     for name, g in result["geometries"].items():
         log(f"{name}: K3-K5 a rank {[r['launches']['flash_train_fwd'] for r in g['ranks']]}, "
-            f"warm step ms {[round(r['warm_step_ms'], 1) for r in g['ranks']]}")
+            f"warm step CUDA-event ms {[round(r['warm_step_ms'], 1) for r in g['ranks']]}")
     if failures:
         raise AssertionError("; ".join(failures))
+    result["k345_launches"] = k345_at_mesh_launches(out, geometries, world, record)
     return result
 
 
-def mesh_cli_epoch(argv, root, record, world: int = 2) -> dict:
-    """The CLI epoch the mesh's ranks ran after their steps (one epoch, by
-    default on a 2x1 mesh of two ranks sharing card 0): each rank's
+def mesh_cli_epoch(argv, root, record, world: int = 2, own_launch_s=None) -> dict:
+    """The CLI epoch on a mesh (one epoch, by default on a 2x1 mesh of two
+    ranks sharing card 0, which ran in ``mesh_rank_steps``' ranks after
+    their steps; with ``own_launch_s``, the seconds of a CLI process that
+    launched its own ranks, whose launches are not counted): each rank's
     kernel launches, rank 0's log and checkpoints; then the greedy path
     serving the model.pt it wrote (K1 and K2 counted over the serving
     run)."""
@@ -2632,7 +2757,7 @@ def mesh_cli_epoch(argv, root, record, world: int = 2) -> dict:
 
     out = os.path.join(root, "mesh_train")
     ranks = []
-    for r in range(world):
+    for r in range(world if own_launch_s is None else 0):
         with open(os.path.join(root, "mesh_steps", f"cli.{r}.json")) as f:
             ranks.append(json.load(f))
     latest = torch.load(os.path.join(out, "latest"), map_location="cpu", weights_only=True)
@@ -2646,7 +2771,7 @@ def mesh_cli_epoch(argv, root, record, world: int = 2) -> dict:
                                 "--evaluate_saved_greedy_search", os.path.join(out, "model.pt")])
     logging.getLogger().handlers.clear()
     launches = {k: counters[k].launches for k in ("iir_scan", "flash_attention_relpos")}
-    result = dict(cli_wall_s=max(r["wall_s"] for r in ranks),
+    result = dict(cli_wall_s=own_launch_s or max(r["wall_s"] for r in ranks),
                   rank_launches=[r["launches"] for r in ranks],
                   microbatches=int(latest["microbatches"]), updates=int(latest["updates"]),
                   finished_epoch_lines=sum("finished epoch" in line for line in lines),
@@ -2674,10 +2799,13 @@ def multi_device(argv, root, record):
                           grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
                           k3_k5_launches_a_rank=[r["launches"]["flash_train_fwd"] for r in g["ranks"]],
                           step_ms=[r["step_ms"] for r in g["ranks"]],
-                          warm_step_ms=[r["warm_step_ms"] for r in g["ranks"]])
+                          warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]])
                for name, g in steps["geometries"].items()}
-    print(json.dumps({"multi_device": dict(geometries=summary, cli_epoch=epoch,
-                                           phase_s=record["mesh_phase_s"])}, default=str),
+    k345 = {f"{r['geometry']}@{r['offsets']}": max(r["vs_plain"].values())
+            for r in steps["k345_launches"]}
+    print(json.dumps({"multi_device": dict(geometries=summary, k345_at_launches_vs_plain=k345,
+                                           cli_epoch=epoch, phase_s=record["mesh_phase_s"])},
+                     default=str),
           flush=True)
 
 

@@ -56,21 +56,18 @@ class MaskedBatchNorm(nn.Module):
             xf = x.float()
             count = float(max(n_valid_rows * L, 1))
             c = xf[0].mean(dim=1)  # (C,) shift from row 0
-            mesh = self.mesh if self.mesh is not None and self.mesh.data > 1 else None
-            first = mesh.data_index * N if mesh is not None else 0  # global index of row 0
-            if mesh is not None:
+            mesh, first = self.mesh, 0  # first: the global index of row 0
+            if mesh is not None:  # (sum_over_data is the identity with one data rank)
+                first = mesh.data_index * N
                 # c * 0, not a fresh zero: every rank's sum must be in the graph,
                 # or one rank would skip the backward all-reduce
                 c = mesh.sum_over_data(c if first == 0 else c * 0.0)
             rows = (torch.arange(N, device=x.device) < n_valid_rows - first)[:, None, None]
             xm = torch.where(rows, xf - c[None, :, None], 0.0)
-            if mesh is None:
-                mean_s = xm.sum(dim=(0, 2)) / count
-                sq = (xm * xm).sum(dim=(0, 2)) / count
-            else:
-                sums = mesh.sum_over_data(torch.stack([xm.sum(dim=(0, 2)),
-                                                       (xm * xm).sum(dim=(0, 2))]))
-                mean_s, sq = sums[0] / count, sums[1] / count
+            sums = torch.stack([xm.sum(dim=(0, 2)), (xm * xm).sum(dim=(0, 2))])
+            if mesh is not None:
+                sums = mesh.sum_over_data(sums)
+            mean_s, sq = sums[0] / count, sums[1] / count
             var = torch.clamp(sq - mean_s * mean_s, min=0.0)
             mean = mean_s + c
             with torch.no_grad():

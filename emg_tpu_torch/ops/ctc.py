@@ -17,8 +17,6 @@ large finite value instead.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
@@ -30,26 +28,20 @@ def ctc_loss(
     input_lengths: torch.Tensor,  # (B,)
     targets: torch.Tensor,  # (B, S) target ids, no blanks
     target_lengths: torch.Tensor,  # (B,)
-    n_examples: int,  # the first n_examples rows are real examples
+    n_examples: int,  # the batch's first n_examples rows are real examples
     blank: int = BLANK_ID,
-    row_offset: Optional[int] = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """Mean over the real examples of nll / max(target_length, 1). With
-    ``row_offset`` (a mesh rank's rows, from that global row on) it is the
-    rank's share: its real rows' sum over the batch's ``n_examples``."""
-    if row_offset is not None:
-        local = min(max(int(n_examples) - row_offset, 0), log_probs.shape[0])
-        if local == 0:  # no real row here: a zero that keeps the graph whole
-            return log_probs[:0].sum()
-        per_seq = F.ctc_loss(
-            log_probs[:local].transpose(0, 1), targets[:local], input_lengths[:local],
-            target_lengths[:local], blank=blank, reduction="none",
-        )
-        per_len = per_seq / target_lengths[:local].clamp(min=1).to(per_seq.dtype)
-        return per_len.sum() / max(int(n_examples), 1)
-    n = max(int(n_examples), 1)
+    """Mean over the real examples of nll / max(target_length, 1): their sum
+    over ``n_examples``. On a mesh the rows given are a rank's, from global
+    row ``row_offset`` on, and the value is the rank's share of that mean:
+    its real rows' sum over the batch's ``n_examples``."""
+    local = min(max(int(n_examples) - row_offset, 0), log_probs.shape[0])
+    if local == 0:  # no real row here: a zero that keeps the graph whole
+        return log_probs[:0].sum()
     per_seq = F.ctc_loss(
-        log_probs[:n].transpose(0, 1), targets[:n], input_lengths[:n], target_lengths[:n],
-        blank=blank, reduction="none",
+        log_probs[:local].transpose(0, 1), targets[:local], input_lengths[:local],
+        target_lengths[:local], blank=blank, reduction="none",
     )
-    return (per_seq / target_lengths[:n].clamp(min=1).to(per_seq.dtype)).mean()
+    per_len = per_seq / target_lengths[:local].clamp(min=1).to(per_seq.dtype)
+    return per_len.sum() / max(int(n_examples), 1)

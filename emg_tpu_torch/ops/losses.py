@@ -15,8 +15,6 @@ the bucket padding. The joint objective is
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from emg_tpu_torch.text.phonemes import PAD_ID
@@ -25,27 +23,24 @@ from emg_tpu_torch.text.phonemes import PAD_ID
 def label_smoothing_loss(
     logits: torch.Tensor,  # (B, S, C)
     targets: torch.Tensor,  # (B, S)
-    n_examples: int,  # the first n_examples rows are real examples
+    n_examples: int,  # the batch's first n_examples rows are real examples
     seq_len: int,  # true (unbucketed) target length of the batch
+    n_tokens: int,  # the batch's target tokens (not pad_id) in its real rows
     epsilon: float = 0.1,
     pad_id: int = PAD_ID,
-    row_offset: Optional[int] = None,
-    n_tokens: Optional[int] = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """With ``row_offset`` (a mesh rank's rows, from that global row on) it
-    is the rank's share of the global loss: its real rows' CE sum over the
-    batch's ``n_tokens`` target tokens and their exp-sum; the shares add up
-    to the loss of the whole batch."""
-    if row_offset is not None:
-        n_examples = min(max(n_examples - row_offset, 0), logits.shape[0])
+    """The CE over the batch's ``n_tokens`` target tokens, smoothed by the
+    exp-sum. On a mesh the rows given are a rank's, from global row
+    ``row_offset`` on, and the value is the rank's share of the batch's
+    loss (its real rows' CE sum over ``n_tokens``, and their exp-sum); the
+    shares add up to the loss of the whole batch."""
+    n_examples = min(max(n_examples - row_offset, 0), logits.shape[0])
     logits, targets = logits[:n_examples], targets[:n_examples]
     logp = torch.log_softmax(logits, dim=-1)
     valid = targets != pad_id
     nll = -logp.gather(-1, torch.where(valid, targets, 0)[..., None])[..., 0]
-    if n_tokens is None:
-        ce = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
-    else:
-        ce = torch.where(valid, nll, 0.0).sum() / max(n_tokens, 1)
+    ce = torch.where(valid, nll, 0.0).sum() / max(n_tokens, 1)
     reg = (epsilon / seq_len) * torch.exp(logits[:, :seq_len]).sum()
     return (1.0 - epsilon) * ce + reg
 

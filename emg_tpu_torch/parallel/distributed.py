@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import logging
 import os
+import random
 import socket
 from typing import Callable
 
@@ -131,9 +132,21 @@ def local_devices(pcfg, device="cuda") -> int:
 
 
 def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for rank 0's rendezvous store, free on every interface and
+    below the range (32768 up on Linux, 49152 up elsewhere) from which the
+    OS gives client sockets their ports: the other ranks' retried connects
+    while rank 0 starts cannot take it, as they can one probed from that
+    range."""
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(20000, 32768)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port in [20000, 32768) for the ranks' rendezvous")
 
 
 def _worker(index: int, world: int, port: int, device: str, share_card: bool, threads: int,

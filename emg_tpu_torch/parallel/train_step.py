@@ -73,26 +73,27 @@ def step_seed(seed: int, microbatches: int) -> int:
 
 def batch_to_device(batch: PackedBatch, device, mesh=None) -> Dict[str, object]:
     """A host ``PackedBatch`` as device tensors, with the host integers the
-    losses slice by (``n_examples`` and the true teacher length
-    ``seq_len``). On a ``mesh`` the tensors are the rank's block of the
-    batch, and the integers stay global, with the rank's first utterance
-    (``row_offset``), the batch's CE token count (``n_tokens``) and its
-    global shapes (``packed_shape``, ``n_targets``) beside them."""
+    losses and the recipe draws go by: ``n_examples``, the true teacher
+    length ``seq_len``, the CE's target token count ``n_tokens``, the
+    first utterance's global index ``row_offset`` and the batch's shapes
+    (``packed_shape``, ``n_targets``). On a ``mesh`` the tensors are the
+    rank's block of the batch and the integers stay global."""
+    from emg_tpu_torch.text.phonemes import PAD_ID
 
     def t(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    extra = {}
+    n = int(batch.n_examples)
+    extra = {"row_offset": 0, "packed_shape": tuple(batch.packed_raw.shape),
+             "n_targets": len(batch.lengths),
+             "n_tokens": int((np.asarray(batch.targets)[:n, 1:] != PAD_ID).sum())}
     seq_len = int(np.max(batch.target_lengths)) - 1
     if mesh is not None:
         from emg_tpu_torch.parallel.mesh import shard_batch
-        from emg_tpu_torch.text.phonemes import PAD_ID
 
-        n = int(batch.n_examples)
         local = shard_batch(batch, mesh)
-        extra = {"row_offset": local.row_offset,
-                 "n_tokens": int((np.asarray(batch.targets)[:n, 1:] != PAD_ID).sum()),
-                 "packed_shape": local.packed_shape, "n_targets": local.n_targets}
+        extra.update(row_offset=local.row_offset, packed_shape=local.packed_shape,
+                     n_targets=local.n_targets)
         batch = local.batch
     return {
         "packed_raw": dequantize_packed_raw(t(batch.packed_raw)),
@@ -101,7 +102,7 @@ def batch_to_device(batch: PackedBatch, device, mesh=None) -> Dict[str, object]:
         "lengths": t(batch.lengths, torch.int64),
         "targets": t(batch.targets, torch.int64),
         "target_lengths": t(batch.target_lengths, torch.int64),
-        "n_examples": int(batch.n_examples),
+        "n_examples": n,
         "seq_len": seq_len,
         **extra,
     }
@@ -119,13 +120,13 @@ def compute_losses(model, batch: Dict[str, object], max_frames: int,
         targets[:, :-1] if tgt_in is None else tgt_in, max_frames, generator,
     )
     n = batch["n_examples"]
-    row_offset = batch.get("row_offset")  # a mesh rank's share of the loss
+    row_offset = batch["row_offset"]  # a mesh rank's share of the loss (0: one device)
     enc_loss = ctc_loss(
         torch.log_softmax(enc_logits.float(), dim=-1), batch["lengths"], targets[:, 1:],
         (batch["target_lengths"] - 2).clamp(min=0), n, row_offset=row_offset,
     )
-    dec_loss = label_smoothing_loss(dec_logits, targets[:, 1:], n, batch["seq_len"], epsilon=0.1,
-                                    row_offset=row_offset, n_tokens=batch.get("n_tokens"))
+    dec_loss = label_smoothing_loss(dec_logits, targets[:, 1:], n, batch["seq_len"],
+                                    batch["n_tokens"], epsilon=0.1, row_offset=row_offset)
     return dec_loss, enc_loss
 
 
@@ -182,9 +183,8 @@ def time_drop_span(total: int, start: torch.Tensor, length: torch.Tensor,
 def local_draws(draws: RecipeDraws, dev: Dict[str, object]) -> RecipeDraws:
     """A mesh rank's slice of draws made at the global batch's shapes: the
     time-drop span over its packed rows, the scheduled-sampling mix over
-    its utterances (rotation and channel drop act on every row alike)."""
-    if "row_offset" not in dev:
-        return draws
+    its utterances (rotation and channel drop act on every row alike); on
+    one device, the draws whole."""
     N, L = dev["packed_raw"].shape[:2]
     B = dev["targets"].shape[0]
     first_row = N * (dev["row_offset"] // B)  # the rank's rows: its data index's block
@@ -310,10 +310,8 @@ def make_train_step(cfg, step_times: Optional[List[dict]] = None):
         targets = dev["targets"]
         ss_prob = cfg.scheduled_sampling_max_prob * min(
             1.0, state.microbatches / max(cfg.scheduled_sampling_ramp, 1))
-        draws = draw_recipe_randomness(generator, cfg,
-                                       dev.get("packed_shape", dev["packed_raw"].shape),
-                                       targets.shape[1] - 1,
-                                       dev.get("n_targets", targets.shape[0]), ss_prob)
+        draws = draw_recipe_randomness(generator, cfg, dev["packed_shape"],
+                                       targets.shape[1] - 1, dev["n_targets"], ss_prob)
         draws = local_draws(draws, dev)
         dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
         tgt_in = None

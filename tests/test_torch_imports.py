@@ -100,9 +100,10 @@ def test_lm_binding_builds_under_build_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py", ROOT / "chip_k4_warps.py",
-                                  ROOT / "chip_k1_layouts.py", ROOT / "chip_mesh_cards.py"],
+                                  ROOT / "chip_k1_layouts.py", ROOT / "chip_mesh_cards.py",
+                                  ROOT / "chip_mesh_margin.py"],
                          ids=["package", "chip_smoke", "chip_k4_warps", "chip_k1_layouts",
-                              "chip_mesh_cards"])
+                              "chip_mesh_cards", "chip_mesh_margin"])
 def test_sources_import_no_jax(path):
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files

@@ -74,7 +74,9 @@ def test_label_smoothing_matches_jax(seq_len):
         targets[b, :L] = rng.integers(0, 41, L)
     ref = jax_ls(jnp.asarray(logits), jnp.asarray(targets), epsilon=0.1,
                  batch_mask=jnp.arange(B) < n, seq_len=seq_len)
-    got = label_smoothing_loss(torch.tensor(logits), torch.tensor(targets), n, seq_len, 0.1)
+    n_tokens = int((targets[:n] != 42).sum())
+    got = label_smoothing_loss(torch.tensor(logits), torch.tensor(targets), n, seq_len, n_tokens,
+                               0.1)
     np.testing.assert_allclose(float(got), float(ref), **TOL)
 
 
