@@ -16,7 +16,14 @@ card:
      --parallel.data_axis 2 --parallel.model_axis 2` in a process of its
      own, which launches its four ranks (one a card, NCCL), checks rank
      0's log and checkpoints, and serves the model.pt it wrote through
-     the greedy path.
+     the greedy path;
+  3. fused accumulation windows on the 2x2 NCCL mesh: chip_smoke.py's
+     phase 13 corpus and flags, the CLI's train mode joined by four ranks
+     (one a card) twice with --train.fused_window false (their difference
+     is the margin), then at the flag's default (on: over NCCL each
+     window's graph holds the collectives); the window run's losses and
+     final parameters against the first eager run's, within the margin,
+     as phase 13 holds them on one card, and its captures and replays.
 It prints the cards' names and power limits, a JSON line of the results
 and {"ok": true, ...} last; a failed check, or fewer than four cards,
 exits non-zero.
@@ -37,6 +44,64 @@ from pathlib import Path
 import torch
 
 CARD_GEOMETRIES = (("2x2", 2, 2, False), ("2x2_seq", 2, 2, True))
+MESH_2X2 = ["--parallel.data_axis", "2", "--parallel.model_axis", "2"]
+WINDOW_RUNS = (("eager_a", ["--train.fused_window", "false"]),
+               ("eager_b", ["--train.fused_window", "false"]), ("window", []))
+
+
+def window_ranks(argv, out_dir):
+    """A rank of the 2x2 window case: the CLI's train mode, joined through
+    cli.main, once for each of WINDOW_RUNS; rank 0 writes each run's
+    microbatch losses and its window runner's counts."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from emg_tpu_torch import cli
+
+    for name, flags in WINDOW_RUNS:
+        trainer = cli.main(argv + chip_smoke.WINDOW_ARGS + MESH_2X2 + flags + [
+            "--device", "cuda", "--output_directory", os.path.join(out_dir, name)])
+        logging.getLogger().handlers.clear()
+        if dist.get_rank() == 0:
+            runner = trainer.windows
+            with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+                json.dump(dict(losses=trainer.train_losses, epoch_seconds=trainer.epoch_seconds,
+                               windows=None if runner is None else dict(
+                                   captures=runner.captures, replays=runner.replays,
+                                   graphs=[dict(microbatches=len(c.inputs), replays=c.replays,
+                                                capture_s=c.capture_s, pool_bytes=c.pool_bytes)
+                                           for c in runner.graphs.values()])), f)
+
+
+def mesh_windows(root, record) -> dict:
+    """Step 3: the window case's ranks, then its checks."""
+    import chip_smoke
+    from emg_tpu_torch.parallel.distributed import launch
+
+    croot = os.path.join(root, "window_corpus")
+    argv = chip_smoke.make_window_corpus(croot)
+    t0 = time.perf_counter()
+    launch(window_ranks, (argv, croot), 4, "cuda")
+    runs = {}
+    for name, _ in WINDOW_RUNS:
+        with open(os.path.join(croot, f"{name}.json")) as f:
+            runs[name] = json.load(f)
+        runs[name]["state"] = chip_smoke.run_state(os.path.join(croot, name), runs[name]["losses"])
+    margin = chip_smoke.run_difference(runs["eager_b"]["state"], runs["eager_a"]["state"])
+    window = chip_smoke.run_difference(runs["window"]["state"], runs["eager_a"]["state"])
+    result = dict(launch_s=time.perf_counter() - t0, margin=margin, window_vs_eager=window,
+                  microbatches=runs["window"]["state"]["microbatches"],
+                  windows={name: r["windows"] for name, r in runs.items()},
+                  epoch_seconds={name: r["epoch_seconds"] for name, r in runs.items()})
+    record["mesh_windows"] = result
+    logging.info("2x2 windows %s", json.dumps(result, default=str))
+    graphs = (result["windows"]["window"] or {}).get("graphs", [])
+    if sum(g["replays"] > 0 for g in graphs) < 2:
+        raise AssertionError(f"fewer than two window signatures were replayed on 2x2: {graphs}")
+    if any(result["windows"][name] is not None for name in ("eager_a", "eager_b")):
+        raise AssertionError("an eager run used windows")
+    chip_smoke.check_window_margin(window, margin)
+    return result
 
 
 def main():
@@ -78,6 +143,7 @@ def main():
                                           own_launch_s=time.perf_counter() - t0)
         if "2 data x 2 model" not in epoch["mesh_line"] or "nccl" not in epoch["mesh_line"]:
             raise AssertionError(f"rank 0's log does not name a 2x2 NCCL mesh: {epoch}")
+        windows = mesh_windows(root, record)
     record["total_s"] = time.perf_counter() - started
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -91,6 +157,7 @@ def main():
                    warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],
                    single_rank_step_ms=g["ranks"][0]["single_rank_step_ms"])
         for name, g in steps.items()}, "cli_epoch": record["mesh_cli_epoch"],
+        "windows": {k: windows[k] for k in ("margin", "window_vs_eager", "windows")},
         "total_s": record["total_s"]}, default=str))
     print("\n".join(cards))
     print(json.dumps({"ok": True, "device": {

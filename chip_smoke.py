@@ -113,6 +113,28 @@ Phases, in order; any failure exits non-zero:
      each rank's block of the whole launch at its offsets, bitwise that
      launch's block, and their plain versions at the same offsets. The
      ranks' collectives go through the host (gloo): no NVLink is measured.
+ 13. the training extras: phase 8's microbatch with --model.remat (each
+     encoder layer recomputed in the backward) and without, from the same
+     weights, batch and seeds: the loss bitwise, the gradients within phase
+     8's bounds, K3 twice a layer (12) and K4, K5 once (6), each one's peak
+     memory and warm step ms; then fused accumulation windows: on a corpus
+     of 42 utterances of one length (two a microbatch, so windows of one
+     composition recur) the CLI's train mode twice with
+     --train.fused_window false and once at its default (on: each window
+     of 2-3 microbatches one CUDA graph, captured once a signature and
+     replayed), the window run's losses and final parameters held to the
+     eager runs' own margin, its captures, replays, capture seconds and
+     pool memory, every run's K3-K5 launches (a replay's counted each
+     replay), each mode's warm ms a microbatch and one replay's idle share
+     (torch.profiler); then the conformer (--model.encoder_kind conformer,
+     phase 8's microbatch) on 1x2 and sequence-sharded 1x2 meshes of two
+     ranks sharing the card (gloo) against the single-rank conformer step,
+     with phase 12's bounds, each rank's warm step ms (host collectives,
+     not a scaling figure); no K2-K5 launch there (the conformer's
+     attention is unfused), the CTC kernels do. Phase 7 also records the
+     (B, T, S) its CTC ran at; the CTC kernels (csrc/ctc_loss.cu, in place
+     of F.ctc_loss, whose lengths go through the host) are held against
+     their plain version there and timed beside F.ctc_loss.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -1403,13 +1425,19 @@ def beam_serving(argv, ckpt, root, record):
 # phases 7 and 8: the training path
 # ---------------------------------------------------------------------------
 
+ATTENTION_KERNELS = ("flash_attention_relpos", "flash_train_fwd", "flash_train_bwd_dq",
+                     "flash_train_bwd_dkv")
+
+
 def kernel_counters():
+    from emg_tpu_torch.ops import ctc
     from emg_tpu_torch.ops import flash_attention as fa
     from emg_tpu_torch.ops.iir_scan import iir_scan
 
     return {"iir_scan": iir_scan, "flash_attention_relpos": fa.flash_attention_relpos,
             "flash_train_fwd": fa.flash_train_fwd, "flash_train_bwd_dq": fa.flash_train_bwd_dq,
-            "flash_train_bwd_dkv": fa.flash_train_bwd_dkv}
+            "flash_train_bwd_dkv": fa.flash_train_bwd_dkv, "ctc_forward": ctc.ctc_forward,
+            "ctc_backward": ctc.ctc_backward}
 
 
 def timed_method(cls, name: str, sink: list):
@@ -1444,8 +1472,8 @@ def recording_shapes(shapes: set):
 def train_through_cli(argv, root, record):
     """Train through the CLI's train mode, then serve the model.pt it wrote;
     train again with the step's phases synchronized for their split.
-    Returns the launch counts of the first run and the (B, T, dtype, rate)
-    set it gave kernels 3-5."""
+    Returns the launch counts of the first run, the (B, T, dtype, rate)
+    set it gave kernels 3-5 and the (B, T, S) set it gave the CTC kernels."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
@@ -1455,9 +1483,10 @@ def train_through_cli(argv, root, record):
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    shapes, eval_s, per_s = set(), [], []
+    shapes, ctc_shapes, eval_s, per_s = set(), set(), [], []
     t0 = time.perf_counter()
-    with recording_shapes(shapes), timed_method(Trainer, "evaluation_loop", eval_s), \
+    with recording_shapes(shapes), recording_ctc(ctc_shapes), \
+            timed_method(Trainer, "evaluation_loop", eval_s), \
             timed_method(Trainer, "report_PER", per_s):
         trainer = cli.main(argv + TRAIN_ARGS + ["--device", DEVICE, "--output_directory", out])
     torch.cuda.synchronize()
@@ -1543,7 +1572,7 @@ def train_through_cli(argv, root, record):
     if not 0.0 <= per < float("inf"):
         raise AssertionError(f"PER of the trained model is not a finite rate: {per}")
     record["training"] = result
-    return launches, shapes
+    return launches, shapes, ctc_shapes
 
 
 def profiled(run):
@@ -2053,8 +2082,11 @@ def recipes_phase(argv, root, record):
     trainer, result = recipe_train(argv + TRAIN_ARGS + RECIPE_KNOBS + CONFORMER, out, record,
                                    "conformer_recipe")
     launches = result["launches"]
+    # K1 (the DSP) and the step's CTC kernels launch; no attention kernel
+    # does: the conformer's attention is never fused
     if trainer.config.model.encoder_kind != "conformer" or launches["iir_scan"] == 0 or any(
-            launches[name] for name in launches if name != "iir_scan"):
+            launches[name] for name in ATTENTION_KERNELS) or not (
+            launches["ctc_forward"] and launches["ctc_backward"]):
         raise AssertionError(f"the conformer recipe did not run as set up: {result['config']}, "
                              f"{launches} (its attention is never fused)")
     conformer_step_profile(argv, record)
@@ -2809,6 +2841,417 @@ def multi_device(argv, root, record):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training extras (remat, fused windows, the conformer on the
+# mesh) and the CTC kernels
+# ---------------------------------------------------------------------------
+
+# the CTC kernels against their plain version, each output's largest error
+# relative to its largest magnitude. The forward's recursions agree
+# bitwise; the gradient is exp(alpha + beta - lp + nll), where alpha and
+# beta reach several hundred at T = 384 and their last bits differ between
+# the kernel and the plain version's tensor ops (whose sums over classes
+# are atomics): ~1e-4 of the largest gradient (7.7e-5 to 8.4e-5 seen)
+CTC_TOL = 5e-4
+# phase 13's corpus: 42 training utterances of one length (2048 raw frames),
+# two a microbatch at max_batch_length 8000 (B=2, T=256), so windows of one
+# composition recur; batch_size_grad 8 and report_loss 2 plan one epoch's
+# 21 microbatches as windows of 2, with and without an apply (4
+# signatures, 3 of them replayed)
+WINDOW_CORPUS_LEN = 3000
+WINDOW_ARGS = ["--n_epochs", "1", "--max_batch_length", "8000", "--batch_size_grad", "8",
+               "--report_loss", "2", "--per_train_batches", "1"]
+# the window against the eager path: the eager runs' own margin (K4's
+# d_used atomics, from the first apply on) is one draw of the noise the
+# window's difference is another draw of, so the window is held to 4x it,
+# and to a floor where the eager runs happen to agree bitwise
+WINDOW_MARGIN_FACTOR = 4.0
+WINDOW_FLOOR = 1e-6
+CONFORMER_MESH = (("1x2", 1, 2, False), ("1x2_seq", 1, 2, True))
+
+
+def recording_ctc(shapes: set):
+    """Patch the CTC loss to record the (B, T, S) of each call; the call
+    itself is unchanged."""
+    from emg_tpu_torch.ops import ctc as ctc_module
+
+    real = ctc_module.ctc_nll
+
+    def record(lp, targets, il, tl, blank=43):
+        shapes.add((lp.shape[0], lp.shape[1], targets.shape[1]))
+        return real(lp, targets, il, tl, blank)
+    return mock.patch.object(ctc_module, "ctc_nll", record)
+
+
+def check_ctc(shapes, record):
+    """The CTC kernels against their plain version at every (B, T, S) the
+    training run gave them, with random log-probabilities, lengths a row
+    (every alignment feasible) and incoming gradients, timed beside
+    F.ctc_loss. Returns the kernels line's rows: the largest shape."""
+    import torch.nn.functional as F
+
+    from emg_tpu_torch.ops import ctc
+
+    rows = []
+    for B, T, S in sorted(shapes):
+        g = torch.Generator(device=DEVICE).manual_seed(B * 1000 + T)
+        lp = torch.randn(B, T, 44, generator=g, device=DEVICE).log_softmax(-1)
+        il = torch.randint(T // 2, T + 1, (B,), generator=g, device=DEVICE)
+        il[0] = T
+        tl = torch.minimum(torch.randint(1, S + 1, (B,), generator=g, device=DEVICE),
+                           (il - 1) // 2)
+        tl[0] = min(S, (T - 1) // 2)
+        targets = torch.randint(0, 40, (B, S), generator=g, device=DEVICE)
+        gnll = torch.rand(B, generator=g, device=DEVICE)
+        args = (lp, targets, il, tl)
+        nll, alpha = ctc.ctc_forward(*args)
+        grad = ctc.ctc_backward(*args, alpha, nll, gnll)
+        pnll, palpha = ctc.ctc_forward_plain(*args)
+        pgrad = ctc.ctc_backward_plain(*args, palpha, pnll, gnll)
+        torch.cuda.synchronize()
+        fwd_err = float((nll - pnll).abs().max())
+        bwd_err = float((grad - pgrad).abs().max())
+        # the work this data needs: each row's T_b x (2 L_b + 1) states
+        states = float((il * (2 * tl + 1)).sum())
+        fwd_bound = bound(4 * (2 * states + B), 12 * states, F32_CUDA_CORE_FLOPS)
+        bwd_bound = bound(4 * (3 * states + B * T * 44), 15 * states, F32_CUDA_CORE_FLOPS)
+        lp_t = lp.transpose(0, 1)
+        leaf = lp.detach().requires_grad_()
+
+        def library_fwd_bwd():
+            out = F.ctc_loss(leaf.transpose(0, 1), targets, il, tl, blank=43, reduction="none")
+            return torch.autograd.grad((out * gnll).sum(), leaf)
+
+        row = dict(
+            B=B, T=T, S=S, nll_rel_err=fwd_err / float(pnll.abs().max()),
+            grad_rel_err=bwd_err / float(pgrad.abs().max()),
+            ctc_forward=dict(
+                max_abs_err=fwd_err, ms=time_ms(lambda: ctc.ctc_forward(*args)),
+                plain_ms=time_ms(lambda: ctc.ctc_forward_plain(*args), iters=2, warmup=1),
+                library_ms=time_ms(lambda: F.ctc_loss(lp_t, targets, il, tl, blank=43,
+                                                      reduction="none")),
+                bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
+            ctc_backward=dict(
+                max_abs_err=bwd_err,
+                ms=time_ms(lambda: ctc.ctc_backward(*args, alpha, nll, gnll)),
+                plain_ms=time_ms(lambda: ctc.ctc_backward_plain(*args, palpha, pnll, gnll),
+                                 iters=2, warmup=1),
+                # F.ctc_loss has no backward alone: its forward and backward
+                library_ms=time_ms(library_fwd_bwd),
+                bound_ms=bwd_bound[0], bound_by=bwd_bound[1]))
+        rows.append(row)
+        log(f"CTC kernels vs plain {json.dumps(row)}")
+    record["ctc_launched"] = rows
+    failed = [r for r in rows if not (r["nll_rel_err"] <= CTC_TOL and r["grad_rel_err"] <= CTC_TOL)]
+    if failed:
+        raise AssertionError(f"the CTC kernels differ from their plain version: {failed}")
+    rep = max(rows, key=lambda r: r["B"] * r["T"] * r["S"])
+    return {name: dict(rep[name], B=rep["B"], T=rep["T"], S=rep["S"])
+            for name in ("ctc_forward", "ctc_backward")}
+
+
+def remat_vs_plain(argv, record) -> dict:
+    """Phase 8's microbatch (float32, dropout 0.2) with model.remat and
+    without, from the same weights, batch and generator seeds: the loss
+    bitwise, the gradients within phase 8's bounds, K3 twice a layer under
+    remat; each one's peak memory over its first step and a warm step's
+    CUDA-event and wall ms."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+
+    cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)])
+    idxs, pb, max_frames = largest_batch(cfg)
+    step = make_train_step(cfg.train)
+    counters = kernel_counters()
+    runs = {}
+    for remat in (False, True):
+        model_cfg = dataclasses.replace(cfg.model, remat=remat)
+        state = create_train_state(EMGModel(model_cfg, device=DEVICE,
+                                            generator=torch.Generator().manual_seed(0)), cfg.train)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        metrics = step(state, pb, max_frames, torch.Generator(device=DEVICE))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step(state, pb, max_frames, torch.Generator(device=DEVICE))
+        end.record()
+        torch.cuda.synchronize()
+        runs[remat] = dict(loss=float(metrics["loss"]), grads=grads, launches=launches,
+                           peak_bytes=peak, state_bytes=before, step_peak_bytes=peak - before,
+                           warm_step_ms=start.elapsed_time(end),
+                           warm_step_wall_ms=(time.perf_counter() - t0) * 1e3)
+        del state, metrics
+        torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    largest = max(float(g.abs().max()) for g in plain["grads"].values())
+    norm_err, worst, noise = grad_errors(remat["grads"], plain["grads"], largest)
+    layers = cfg.model.num_layers_encoder
+    result = dict(
+        examples=len(idxs), max_frames=max_frames, loss=remat["loss"],
+        loss_bitwise=remat["loss"] == plain["loss"],
+        grads_bitwise=sorted(n for n, g in plain["grads"].items()
+                             if torch.equal(remat["grads"][n], g)).__len__(),
+        grads=len(plain["grads"]),
+        not_bitwise=sorted(n for n, g in plain["grads"].items()
+                           if not torch.equal(remat["grads"][n], g)),
+        grad_norm_rel_err=norm_err, worst_grad_rel_err=worst, bn_fed_bias_err_of_largest=noise,
+        **{f"{k}_{'remat' if r else 'plain'}": runs[r][k] for r in (False, True)
+           for k in ("launches", "peak_bytes", "state_bytes", "step_peak_bytes", "warm_step_ms",
+                     "warm_step_wall_ms")})
+    record["remat"] = result
+    log(f"remat vs plain {json.dumps(result)}")
+    if not result["loss_bitwise"]:
+        raise AssertionError(f"remat's loss differs from the step without it: {result}")
+    if not (norm_err <= STEP_NORM_TOL and max(worst.values()) <= STEP_GRAD_TOL
+            and noise <= STEP_NOISE_TOL):
+        raise AssertionError(f"remat's gradients differ from the step without it: {result}")
+    want = {"flash_train_fwd": 2 * layers, "flash_train_bwd_dq": layers,
+            "flash_train_bwd_dkv": layers}
+    got = {k: remat["launches"][k] for k in want}
+    if got != want or plain["launches"]["flash_train_fwd"] != layers:
+        raise AssertionError(f"K3-K5 under remat launched {got}, not {want}")
+    return result
+
+
+def make_window_corpus(root: str):
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.data.dataset import make_normalizers
+    from emg_tpu_torch.data.fixtures import make_reference_scale_corpus
+
+    paths = make_reference_scale_corpus(
+        root, seed=1, n_sessions=1, sentences_per_session=24, n_dev=2, n_test=2,
+        n_nonparallel=2, min_len=WINDOW_CORPUS_LEN, max_len=WINDOW_CORPUS_LEN + 1)
+    argv = ["--silent_data_directories", paths["silent_data_directories"],
+            "--voiced_data_directories", paths["voiced_data_directories"],
+            "--testset_file", paths["testset_file"], "--dict", paths["dict"],
+            "--normalizers_file", os.path.join(root, "normalizers.pkl")]
+    make_normalizers(Config.from_args(argv), device=DEVICE)
+    return argv
+
+
+def run_state(directory: str, losses) -> dict:
+    """A training run's microbatch losses and the state its ``latest`` holds."""
+    latest = torch.load(os.path.join(directory, "latest"), map_location="cpu", weights_only=True)
+    return dict(losses=list(losses), model=latest["model"],
+                moments={i: s["exp_avg"] for i, s in latest["optimizer"]["state"].items()},
+                microbatches=int(latest["microbatches"]), updates=int(latest["updates"]))
+
+
+def run_difference(a: dict, b: dict) -> dict:
+    """Two training runs apart: the largest relative loss difference over
+    their microbatches, the parameters' and AdamW first moments' whole-vector
+    relative difference, and the worst parameter tensor's (the BatchNorm-fed
+    conv biases aside)."""
+    loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+
+    def norm_err(x, y, names):
+        d = sum(float((x[n].double() - y[n].double()).pow(2).sum()) for n in names)
+        r = sum(float(y[n].double().pow(2).sum()) for n in names)
+        return (d / r) ** 0.5
+
+    params = [n for n, v in b["model"].items() if v.is_floating_point()
+              and not n.endswith(("running_mean", "running_var"))]
+    worst = max((float((a["model"][n] - b["model"][n]).abs().max())
+                 / max(float(b["model"][n].abs().max()), 1e-30), n) for n in params
+                if not (n.startswith("conv_blocks") and n.endswith(
+                    ("conv1.bias", "conv2.bias", "residual_path.bias"))))
+    return dict(loss_rel=loss, params_norm_rel=norm_err(a["model"], b["model"], params),
+                moments_norm_rel=norm_err(a["moments"], b["moments"], list(b["moments"])),
+                worst_param=worst[0], worst_param_name=worst[1])
+
+
+def window_profile(trainer, state) -> dict:
+    """After the window run, on the state it left: the window graph
+    replayed most, replayed again, against its last window's microbatches
+    as per-microbatch steps (``trainer.train_step``, the eager path), each
+    a microbatch's wall ms (median of three synchronized passes) and, from
+    a torch.profiler trace of one more pass each, the card's busy ms and
+    idle share (of the unprofiled wall, and of the trace's device span)."""
+    captured = max(trainer.windows.graphs.values(), key=lambda c: c.replays)
+    group = captured.last_group
+    n = len(group)
+
+    def eager():
+        for pb, max_frames in group:
+            trainer.train_step(state, pb, max_frames, trainer.generator)
+
+    result = {"microbatches": n}
+    for name, run in (("replay", captured.graph.replay), ("eager", eager)):
+        run()
+        walls = [timed_sync(run)[1] for _ in range(3)]
+        wall = float(np.median(walls))
+        row = dict(wall_ms_a_microbatch=wall / n, walls_ms=walls)
+        prof, profiled_wall = profiled(lambda: (run(), torch.cuda.synchronize()))
+        try:
+            by_name, span, kernels = device_work(prof, f"a window's {name}")
+        except AssertionError as e:  # the trace saw no device work
+            row.update(idle_share="not measured", profiler=str(e))
+        else:
+            busy = sum(by_name.values())
+            row.update(profiled_wall_ms=profiled_wall, busy_ms_a_microbatch=busy / n,
+                       span_ms=span, kernels_a_microbatch=kernels / n,
+                       idle_share_of_wall=1.0 - busy / wall, idle_share_of_span=1.0 - busy / span)
+        result[name] = row
+    return result
+
+
+def fused_windows(root, record) -> dict:
+    """The CLI's train mode on phase 13's corpus three times: twice with
+    --train.fused_window false (their difference is the margin), then with
+    the flag at its default (auto: on, on the card). The window run's
+    losses and final parameters against the first eager run's, within the
+    margin; its captures, replays, capture seconds and pool memory; every
+    run's K3-K5 launches (a replay's counted at each replay); each run's
+    train loop ms a microbatch (the epoch less its evaluation passes and
+    PER report: batch assembly, captures and steps); then, on the state the
+    window run left, a window's microbatches replayed and as eager steps
+    (``window_profile``)."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.train.trainer import Trainer
+
+    croot = os.path.join(root, "window_corpus")
+    argv = make_window_corpus(croot)
+    counters = kernel_counters()
+    runs, states = {}, []
+    real_train = Trainer.train
+
+    def keeping_state(self, *args, **kwargs):
+        states.append(real_train(self, *args, **kwargs))
+        return states[-1]
+
+    for name, flags in (("eager_a", ["--train.fused_window", "false"]),
+                        ("eager_b", ["--train.fused_window", "false"]), ("window", [])):
+        for fn in counters.values():
+            fn.launches = 0
+        eval_s, per_s = [], []
+        t0 = time.perf_counter()
+        with timed_method(Trainer, "evaluation_loop", eval_s), \
+                timed_method(Trainer, "report_PER", per_s), \
+                mock.patch.object(Trainer, "train", keeping_state):
+            trainer = cli.main(argv + WINDOW_ARGS + flags + [
+                "--device", DEVICE, "--output_directory", os.path.join(croot, name)])
+        torch.cuda.synchronize()
+        logging.getLogger().handlers.clear()
+        st = run_state(trainer.ckpt.directory, trainer.train_losses)
+        loop = sum(trainer.epoch_seconds) - sum(s for _, s in eval_s + per_s)
+        runs[name] = dict(state=st, trainer=trainer, wall_s=time.perf_counter() - t0,
+                          launches={k: fn.launches for k, fn in counters.items()},
+                          epoch_seconds=trainer.epoch_seconds,
+                          loop_ms_a_microbatch=loop / st["microbatches"] * 1e3)
+    margin = run_difference(runs["eager_b"]["state"], runs["eager_a"]["state"])
+    window = run_difference(runs["window"]["state"], runs["eager_a"]["state"])
+    runner = runs["window"]["trainer"].windows
+    layers = runs["window"]["trainer"].config.model.num_layers_encoder
+    graphs = [dict(microbatches=len(c.inputs), replays=c.replays, capture_s=c.capture_s,
+                   pool_bytes=c.pool_bytes,
+                   launches_a_replay={fn.__name__: n for fn, n in c.launches.items() if n})
+              for c in runner.graphs.values()]
+    result = dict(
+        microbatches=runs["window"]["state"]["microbatches"],
+        updates=runs["window"]["state"]["updates"], margin=margin, window_vs_eager=window,
+        captures=runner.captures, replays=runner.replays, graphs=graphs,
+        launches={k: r["launches"] for k, r in runs.items()},
+        loop_ms_a_microbatch={k: r["loop_ms_a_microbatch"] for k, r in runs.items()},
+        cli_wall_s={k: r["wall_s"] for k, r in runs.items()},
+        replay_vs_eager=window_profile(runs["window"]["trainer"], states[-1]))
+    record["fused_windows"] = result
+    log(f"fused windows {json.dumps(result, default=str)}")
+    replayed = [g for g in graphs if g["replays"] > 0]
+    if len(replayed) < 2 or max(g["microbatches"] for g in replayed) < 2:
+        raise AssertionError(f"fewer than two window signatures were replayed: {graphs}")
+    n = result["microbatches"]
+    for name, r in runs.items():
+        got = {k: r["launches"][k] for k in ("flash_train_fwd", "flash_train_bwd_dq",
+                                              "flash_train_bwd_dkv")}
+        if any(v != layers * n for v in got.values()):
+            raise AssertionError(f"{name}: K3-K5 launched {got}, not {layers} a microbatch")
+    if runs["window"]["state"]["microbatches"] != runs["eager_a"]["state"]["microbatches"]:
+        raise AssertionError("the window run trained another number of microbatches")
+    check_window_margin(window, margin)
+    return result
+
+
+def check_window_margin(window: dict, margin: dict) -> None:
+    """The window run against the eager run (``run_difference``) held to
+    the eager runs' own margin, as WINDOW_MARGIN_FACTOR says."""
+    for key in ("loss_rel", "params_norm_rel"):
+        limit = max(WINDOW_MARGIN_FACTOR * margin[key], WINDOW_FLOOR)
+        if not window[key] <= limit:
+            raise AssertionError(f"the window run's {key} {window[key]} is over {limit} (the "
+                                 f"eager runs' margin {margin[key]})")
+
+
+def conformer_mesh(argv, root, record) -> dict:
+    """Phase 8's microbatch on the conformer (the flagship's widths,
+    --model.encoder_kind conformer; float32, dropout 0.2) on 1x2 and
+    sequence-sharded 1x2 meshes of two ranks sharing the card (gloo),
+    against the single-rank conformer step on the card, with phase 12's
+    bounds; none of K2-K5 launches (the conformer's attention is the
+    unfused path), the CTC kernels do."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.parallel.distributed import launch
+
+    cfg_argv = argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9),
+                                    "--model.encoder_kind", "conformer"]
+    cfg = Config.from_args(cfg_argv)
+    idxs, pb, max_frames = largest_batch(cfg)
+    out = os.path.join(root, "mesh_conformer")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, CONFORMER_MESH), 2, DEVICE,
+           share_card=True)
+    result = dict(examples=len(idxs), max_frames=max_frames, launch_s=time.perf_counter() - t0,
+                  geometries={})
+    failures = []
+    for name, *_ in CONFORMER_MESH:
+        result["geometries"][name], failed = mesh_geometry_result(out, name, 2, 0)
+        failures += failed
+        for r in result["geometries"][name]["ranks"]:
+            if min(r["launches"][k] for k in ("ctc_forward", "ctc_backward")) < 1:
+                failures.append(f"{name}: rank {r['rank']} never launched the CTC kernels")
+            if any(r["launches"][k] for k in ATTENTION_KERNELS):
+                failures.append(f"{name}: rank {r['rank']} launched an attention kernel")
+    record["conformer_mesh"] = result
+    log(f"conformer mesh steps {json.dumps(result)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
+def training_extras(argv, root, record):
+    t0 = time.perf_counter()
+    remat = remat_vs_plain(argv, record)
+    windows = fused_windows(root, record)
+    conformer = conformer_mesh(argv, root, record)
+    record["extras_phase_s"] = time.perf_counter() - t0
+    log(f"phase 13 took {record['extras_phase_s']:.1f} s")
+    summary = dict(
+        remat={k: remat[k] for k in ("loss_bitwise", "grads_bitwise", "grads", "not_bitwise",
+                                     "grad_norm_rel_err", "launches_remat", "peak_bytes_plain",
+                                     "peak_bytes_remat", "warm_step_ms_plain",
+                                     "warm_step_ms_remat")},
+        fused_windows={k: windows[k] for k in ("margin", "window_vs_eager", "captures", "replays",
+                                               "loop_ms_a_microbatch", "replay_vs_eager")},
+        conformer_mesh={name: dict(loss_rel_err=g["ranks"][0]["loss_rel_err"],
+                                   grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
+                                   warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],
+                                   single_rank_step_ms=g["ranks"][0]["single_rank_step_ms"])
+                        for name, g in conformer["geometries"].items()},
+        phase_s=record["extras_phase_s"])
+    print(json.dumps({"training_extras": summary}, default=str), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2855,9 +3298,11 @@ def main():
         log("phase 6: whole path, kernels vs plain, float32")
         whole_path_kernels_vs_plain(argv, ckpt, record)
         log("phase 7: training at full width through the CLI")
-        train_launches, shapes = train_through_cli(argv, root, record)
+        train_launches, shapes, ctc_shapes = train_through_cli(argv, root, record)
         log("phase 7: kernels 3-5 vs plain at the shapes training launched")
         k345 = check_launched_shapes(shapes, record)
+        log("phase 7: the CTC kernels vs plain at the shapes training launched")
+        ctc_rows = check_ctc(ctc_shapes, record)
         log("phase 8: one train step, kernels vs plain, float32")
         train_step_kernels_vs_plain(argv, record)
         log("phase 9: beam serving at full width")
@@ -2868,14 +3313,18 @@ def main():
         beam_remainder(argv, ckpt, root, record)
         log("phase 12: multi-device training, two ranks sharing the card")
         multi_device(argv, root, record)
+        log("phase 13: the training extras (remat, fused windows, the conformer on the mesh)")
+        training_extras(argv, root, record)
 
     # K1 and K2 count over the greedy serving run (phase 9's JSON holds
     # their counts over the beam run), K3-K5 over the training run
     log(f"K1 and K2 launches over the beam run: {json.dumps(beam_launches)}")
-    launches.update({name: train_launches[name] for name in k345})
-    rows = {"iir_scan": dict(k1, library_ms=None), "flash_attention_relpos": k2, **k345}
+    launches.update({name: train_launches[name] for name in (*k345, *ctc_rows)})
+    rows = {"iir_scan": dict(k1, library_ms=None), "flash_attention_relpos": k2, **k345,
+            **ctc_rows}
     train_source = "emg_tpu_torch/ops/csrc/flash_attention_relpos_train.cu"
     bwd_source = "emg_tpu_torch/ops/csrc/flash_bwd_relpos.cuh"
+    ctc_source = "emg_tpu_torch/ops/csrc/ctc_loss.cu"
     kernels = []
     for name, source, replaces in (
         ("iir_scan", "emg_tpu_torch/ops/csrc/iir_scan.cu", "emg_tpu/ops/pallas/iir_scan.py:96"),
@@ -2884,6 +3333,10 @@ def main():
         ("flash_train_fwd", train_source, "emg_tpu/ops/pallas/flash_attention.py:468"),
         ("flash_train_bwd_dq", bwd_source, "emg_tpu/ops/pallas/flash_attention.py:525"),
         ("flash_train_bwd_dkv", bwd_source, "emg_tpu/ops/pallas/flash_attention.py:567"),
+        # no TPU kernel: the JAX package's CTC is optax's XLA loop, and these
+        # replace F.ctc_loss, which a CUDA graph cannot hold
+        ("ctc_forward", ctc_source, "emg_tpu/ops/ctc.py:40 (optax.ctc_loss, an XLA op)"),
+        ("ctc_backward", ctc_source, "emg_tpu/ops/ctc.py:40 (optax.ctc_loss, an XLA op)"),
     ):
         row = rows[name]
         kernels.append({

@@ -59,6 +59,14 @@ State = Dict[str, object]
 _capture_streams: Dict[int, "torch.cuda.Stream"] = {}
 
 
+def capture_stream(device: int) -> "torch.cuda.Stream":
+    """The side stream on which every warm-up and capture of ``device``
+    runs (decode loops and training windows alike)."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    return _capture_streams[device]
+
+
 def _leaves(x):
     if isinstance(x, torch.Tensor):
         return [x]
@@ -200,10 +208,7 @@ class LoopRunner:
                 graph.capture_end()
             return graph
 
-        device = self.model.device.index
-        if device not in _capture_streams:
-            _capture_streams[device] = torch.cuda.Stream(device)
-        side = _capture_streams[device]
+        side = capture_stream(self.model.device.index)
         side.wait_stream(torch.cuda.current_stream())
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()

@@ -48,11 +48,44 @@ STRUCT_MASK = float("-inf")  # structural (not-yet-generated) positions
 ATTN_TILE = 128  # encoder self-attention pads T up to a multiple of this
 
 
+class DrawTape:
+    """A generator's stand-in for a rematerialized layer
+    (``models/transformer.py``): the layer's first run draws from
+    ``generator`` and keeps each draw (a dropout keep mask, the fused
+    attention's seed) in order; after ``replay`` the layer's recompute in
+    the backward reads the same tensors back instead of drawing again. The
+    generator is thus drawn from exactly as the layer without remat draws
+    from it, and nothing is restored on it, so a CUDA graph can hold the
+    whole step."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.drawn = []
+        self.at: Optional[int] = None  # None: drawing; else the next draw to read back
+
+    def draw(self, make):
+        if self.at is None:
+            value = make(self.generator)
+            self.drawn.append(value)
+            return value
+        value = self.drawn[self.at]
+        self.at += 1
+        return value
+
+    def replay(self) -> None:
+        self.at = 0
+
+
+def _draw(generator, make):
+    return generator.draw(make) if isinstance(generator, DrawTape) else make(generator)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             training: bool, shard=()) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout`` semantics: keep with
     probability 1 - rate, scale kept values by 1 / (1 - rate)), its mask
-    drawn from ``generator``. The identity outside training or at rate 0.
+    drawn from ``generator`` (or read back from a ``DrawTape``). The
+    identity outside training or at rate 0.
 
     ``shard`` lists (dim, start, global size) for each dim in which x is a
     mesh rank's slice of the tensor the unsharded model drops: the mask is
@@ -65,19 +98,25 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     shape = list(x.shape)
     for dim, _, size in shard:
         shape[dim] = size
-    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
-    for dim, start, _ in shard:
-        keep = keep.narrow(dim, start, x.shape[dim])
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    def make(g):
+        keep = torch.rand(shape, generator=g, device=x.device) >= rate
+        for dim, start, _ in shard:
+            keep = keep.narrow(dim, start, x.shape[dim])
+        return keep
+
+    return torch.where(_draw(generator, make), x / (1.0 - rate), 0.0)
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """A one-element int32 tensor of 32 random bits: the attention
-    dropout's hash seed, drawn on the device with no host sync."""
+    dropout's hash seed, drawn on the device with no host sync (or read
+    back from a ``DrawTape``)."""
     if generator is None:
         raise ValueError("train-mode attention dropout needs a torch.Generator")
-    return torch.randint(-2 ** 31, 2 ** 31, (1,), generator=generator, device=device,
-                         dtype=torch.int64).to(torch.int32)
+    return _draw(generator, lambda g: torch.randint(-2 ** 31, 2 ** 31, (1,), generator=g,
+                                                    device=device, dtype=torch.int64)
+                 .to(torch.int32))
 
 
 def relative_to_absolute(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ decoder with cross-attention -> CE head. The encoder is
 under ``use_flash_attention``, unfused otherwise) or, for
 ``encoder_kind="conformer"``, ``models/conformer.py::ConformerEncoder``;
 either is ``transformerEncoder``, reached only through
-``transformerEncoder(src, mask, generator)``.
+``transformerEncoder(src, mask, generator)``. ``model.remat``
+rematerializes the transformer encoder's layers in training; as in the JAX
+package (``emg_tpu/models/model.py`` builds the conformer without the
+flag), it does nothing to the conformer.
 
 Train mode (``model.train()``): BatchNorm takes batch statistics over the
 valid packed rows, the dropouts of ``dropout_model`` / ``dropout_pos_emb``
@@ -98,8 +101,6 @@ class EMGModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError("remat (rematerialized encoder layers) is not yet ported")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
@@ -119,7 +120,7 @@ class EMGModel(nn.Module):
         else:
             self.transformerEncoder = TransformerEncoder(
                 cfg.num_layers_encoder, D, cfg.n_heads_encoder, cfg.feed_forward_layer_size,
-                cfg.relative_distance, cfg.dropout_model, cfg.use_flash_attention,
+                cfg.relative_distance, cfg.dropout_model, cfg.use_flash_attention, cfg.remat,
             )
         self.transformerDecoder = TransformerDecoder(
             cfg.num_layers_decoder, D, cfg.n_heads_decoder, cfg.feed_forward_layer_size,

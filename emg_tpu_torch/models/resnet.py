@@ -48,13 +48,16 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor, n_valid_rows: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid_rows) -> torch.Tensor:
+        """``n_valid_rows``: an int or a 0-dim integer tensor on x's device
+        (read only there, so one CUDA graph serves every count)."""
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             N, _, L = x.shape
             xf = x.float()
-            count = float(max(n_valid_rows * L, 1))
+            n_valid_rows = torch.as_tensor(n_valid_rows, device=x.device)
+            count = (n_valid_rows * L).clamp(min=1).to(torch.float32)
             c = xf[0].mean(dim=1)  # (C,) shift from row 0
             mesh, first = self.mesh, 0  # first: the global index of row 0
             if mesh is not None:  # (sum_over_data is the identity with one data rank)
@@ -71,7 +74,7 @@ class MaskedBatchNorm(nn.Module):
             var = torch.clamp(sq - mean_s * mean_s, min=0.0)
             mean = mean_s + c
             with torch.no_grad():
-                unbiased = var * count / max(count - 1.0, 1.0)
+                unbiased = var * count / (count - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
                 self.num_batches_tracked.add_(1)
@@ -99,7 +102,7 @@ class ResBlock(nn.Module):
             self.residual_path = nn.Conv1d(num_ins, num_outs, 1, stride=stride)
             self.res_norm = MaskedBatchNorm(num_outs)
 
-    def forward(self, x: torch.Tensor, n_valid_rows: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid_rows) -> torch.Tensor:
         # x: (rows, channels_in, time)
         h = F.relu(self.bn1(_conv(self.conv1, x), n_valid_rows))
         h = self.bn2(_conv(self.conv2, h), n_valid_rows)
@@ -121,7 +124,7 @@ class ConvStack(nn.ModuleList):
             ResBlock(d_model, d_model, 2),
         ])
 
-    def forward(self, x: torch.Tensor, n_valid_rows: int, dtype=torch.float32) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid_rows, dtype=torch.float32) -> torch.Tensor:
         """x: (rows, time, channels) -> (rows, time/8, d_model) at ``dtype``."""
         x = x.to(dtype).transpose(1, 2)
         for block in self:

@@ -46,8 +46,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from emg_tpu_torch.models.attention import NEG_FILL, MultiHeadAttention, dropout
+from emg_tpu_torch.models.attention import NEG_FILL, DrawTape, MultiHeadAttention, dropout
 from emg_tpu_torch.utils.quantize import weight_as
 
 
@@ -200,14 +201,41 @@ class TransformerDecoderLayer(nn.Module, _FeedForwardMixin):
         return layer_norm(self.norm3, x + self.feed_forward(x), cdt)
 
 
+def rematerialized(layer: nn.Module, src: torch.Tensor, src_padding_mask: torch.Tensor,
+                   generator=None) -> torch.Tensor:
+    """``layer(src, src_padding_mask, generator)`` under
+    ``torch.utils.checkpoint``: the backward recomputes the layer from its
+    input instead of keeping its activations (the JAX package's
+    ``nn.remat``). The layer draws through a ``DrawTape``, so the recompute
+    reads back the masks and the attention seed that the first run drew,
+    and the generator advances once, as without remat. Nothing is saved or
+    restored on any generator (``preserve_rng_state=False``): a CUDA graph
+    holds the step. On a mesh the recompute replays the layer's
+    collectives inside the backward, in the same order on every rank."""
+    tape = DrawTape(generator) if generator is not None else None
+
+    def run(x):
+        out = layer(x, src_padding_mask, tape)
+        if tape is not None:
+            tape.replay()
+        return out
+
+    return checkpoint(run, src, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
+    """The encoder stack. With ``remat`` each layer is rematerialized in
+    training (``rematerialized``); in eval mode, or with gradients off, the
+    layers run as they are."""
+
     mesh = None
     sequence_shard = False  # split the stream's time over the model axis
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
                  relative_positional_distance: int, dropout: float = 0.0,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, num_heads, d_ff, relative_positional_distance,
                                     dropout, use_flash)
@@ -220,8 +248,10 @@ class TransformerEncoder(nn.Module):
         seq = self.mesh is not None and self.sequence_shard
         if seq:
             src = self.mesh.split_seq(src)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            src = layer(src, src_padding_mask, generator)
+            src = (rematerialized(layer, src, src_padding_mask, generator) if remat
+                   else layer(src, src_padding_mask, generator))
         return self.mesh.gather_seq_replicated(src) if seq else src
 
 

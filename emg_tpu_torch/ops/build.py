@@ -33,7 +33,7 @@ log = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emg_tpu_torch_kernels"
-SOURCES = ("iir_scan", "flash_attention_relpos", "flash_attention_relpos_train")
+SOURCES = ("iir_scan", "flash_attention_relpos", "flash_attention_relpos_train", "ctc_loss")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -68,6 +68,11 @@ SIGNATURES = {
     "flash_attention_relpos": {
         "flash_attention_relpos_f32": [_P] * 7 + [_I] * 4 + [_P],
         "flash_attention_relpos_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    },
+    "ctc_loss": {
+        # pointers; B, T, C, S, blank; stream
+        "ctc_forward_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "ctc_backward_f32": [_P] * 9 + [_I] * 5 + [_P],
     },
 }
 

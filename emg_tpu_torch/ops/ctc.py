@@ -1,26 +1,214 @@
-"""CTC loss with the reference's reduction.
+"""CTC loss with the reference's reduction: CUDA kernels, plain version,
+wrapper.
 
 Counterpart of ``emg_tpu/ops/ctc.py``. The reference computes
 F.ctc_loss(log_probs, targets, input_lengths, target_lengths, blank=43)
 with the default 'mean' reduction: the batch mean of each sequence's
 negative log-likelihood divided by its target length (reference
 recognition_model.py:93-98; targets are the phoneme ids with <S>/</S>
-stripped). Here ``F.ctc_loss(reduction="none")`` gives the per-sequence
-values and the mean runs over the real examples only: the bucket-padding
-examples of a batch (``n_examples`` onward) are left out before the loss
-is formed, so they cost nothing and cannot reach the gradient.
+stripped). Here the per-sequence values come from ``ctc_nll`` and the mean
+runs over the real examples only: the bucket-padding examples of a batch
+(``n_examples`` onward) are masked out, so they cost nothing and cannot
+reach the gradient. ``n_examples`` may be a host int or a 0-dim device
+tensor; nothing here reads the device from the host, so a CUDA graph can
+hold the whole loss.
+
+``ctc_nll`` is the forward-backward recursion of ``csrc/ctc_loss.cu`` on a
+CUDA tensor (``ctc_forward`` and ``ctc_backward``, which read the lengths
+from device memory: PyTorch's F.ctc_loss copies them to the host) and the
+plain version below, the same recursions in tensor code, on a CPU tensor.
+The gradient is the true gradient with respect to the log-probabilities;
+after log_softmax's backward it is PyTorch's.
 
 An alignment that cannot exist (more labels than frames allow) gives
-``inf`` here, as in the reference; the JAX package's optax CTC gives a
-large finite value instead.
+``inf`` here, as in the reference, and no gradient; the JAX package's
+optax CTC gives a large finite value instead.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from emg_tpu_torch.ops import build
 from emg_tpu_torch.text.phonemes import BLANK_ID
+
+NEG_INF = float("-inf")
+MAX_LABELS = 511  # 2 * S + 1 states must fit one 1024-thread block
+
+
+def _lse3(a, b, c):
+    """log(e^a + e^b + e^c) in float32, -inf where all three are -inf (the
+    kernels' lse3)."""
+    m = torch.maximum(a, torch.maximum(b, c))
+    safe = torch.where(m == NEG_INF, 0.0, m)
+    return safe + torch.log(torch.exp(a - safe) + torch.exp(b - safe) + torch.exp(c - safe))
+
+
+def _shift(x, k):
+    """x (B, Sp) moved right by k states (k < 0: left), -inf filled."""
+    fill = torch.full_like(x[:, : abs(k)], NEG_INF)
+    return torch.cat([fill, x[:, :-k]], 1) if k > 0 else torch.cat([x[:, -k:], fill], 1)
+
+
+def _labels(targets, target_lengths, blank):
+    """The extended labels (B, Sp), each state's skip flag, the valid-state
+    mask (s < 2L + 1) and L."""
+    B, S = targets.shape
+    s = torch.arange(2 * S + 1, device=targets.device)
+    lab = torch.where(s % 2 == 1, targets[:, (s // 2).clamp(max=S - 1)], blank)
+    skip = (s % 2 == 1) & (s >= 3) & (lab != _shift_int(lab))
+    L = target_lengths.clamp(0, S)
+    valid = s[None, :] < (2 * L + 1)[:, None]
+    return lab, skip, valid, L
+
+
+def _shift_int(lab):
+    return torch.cat([torch.full_like(lab[:, :2], -1), lab[:, :-2]], 1)
+
+
+def ctc_forward_plain(lp, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
+    """Plain version of the forward kernel: (nll (B,), alpha (B, T, 2S+1)),
+    float32, alpha valid at t < T_b."""
+    B, T, C = lp.shape
+    lab, skip, valid, L = _labels(targets, target_lengths, blank)
+    Tb = input_lengths.clamp(0, T)
+    em = lp.gather(2, lab[:, None, :].expand(B, T, lab.shape[1]))
+    s = torch.arange(lab.shape[1], device=lp.device)
+    a = torch.where(valid & (s < 2), em[:, 0], NEG_INF)
+    alphas = [a]
+    for t in range(1, T):
+        new = _lse3(a, _shift(a, 1), torch.where(skip, _shift(a, 2), NEG_INF)) + em[:, t]
+        new = torch.where(valid, new, NEG_INF)
+        alphas.append(new)
+        a = torch.where((t < Tb)[:, None], new, a)  # a row past its frames keeps its last
+    alpha = torch.stack(alphas, 1)
+    Sb = 2 * L + 1
+    last = a.gather(1, torch.stack([Sb - 1, (Sb - 2).clamp(min=0)], 1))
+    ll = torch.where(L > 0, _lse3(last[:, 0], last[:, 1], torch.full_like(last[:, 0], NEG_INF)),
+                     last[:, 0])
+    ll = torch.where(Tb == 0, torch.where(L == 0, 0.0, NEG_INF), ll)
+    return -ll, alpha
+
+
+def ctc_backward_plain(lp, targets, input_lengths, target_lengths, alpha, nll, grad_nll,
+                       blank: int = BLANK_ID):
+    """Plain version of the backward kernels: d(sum_b grad_nll[b] nll[b]) /
+    d lp, (B, T, C) float32; zero at t >= T_b and for rows whose nll is not
+    finite."""
+    B, T, C = lp.shape
+    lab, skip, valid, L = _labels(targets, target_lengths, blank)
+    Tb = input_lengths.clamp(0, T)
+    em = lp.gather(2, lab[:, None, :].expand(B, T, lab.shape[1]))
+    s = torch.arange(lab.shape[1], device=lp.device)
+    Sb = (2 * L + 1)[:, None]
+    skip_next = _shift(skip.float(), -2) > 0  # skip(s + 2)
+    bnext = torch.full_like(em[:, 0], NEG_INF)
+    betas = [None] * T
+    for t in range(T - 1, -1, -1):
+        init = torch.where(valid & (s >= Sb - 2), em[:, t], NEG_INF)
+        rec = _lse3(bnext, _shift(bnext, -1), torch.where(skip_next, _shift(bnext, -2), NEG_INF))
+        rec = torch.where(valid, rec + em[:, t], NEG_INF)
+        b_t = torch.where((t == Tb - 1)[:, None], init,
+                          torch.where((t < Tb - 1)[:, None], rec, NEG_INF))
+        betas[t] = b_t
+        bnext = b_t
+    beta = torch.stack(betas, 1)
+    live = (torch.arange(T, device=lp.device)[None, :, None] < Tb[:, None, None]) & valid[:, None, :]
+    live = live & torch.isfinite(nll)[:, None, None]
+    w = torch.where(live, torch.exp(alpha + beta - em + nll[:, None, None]), 0.0)
+    grad = torch.zeros_like(lp).scatter_add_(2, lab[:, None, :].expand_as(w), w)
+    return -grad_nll.to(grad.dtype)[:, None, None] * grad
+
+
+def _check(lp, targets, input_lengths, target_lengths, blank):
+    if lp.dim() != 3 or targets.dim() != 2 or targets.shape[0] != lp.shape[0]:
+        raise ValueError(f"log_probs (B, T, C) and targets (B, S), got {tuple(lp.shape)}, "
+                         f"{tuple(targets.shape)}")
+    B = lp.shape[0]
+    if input_lengths.shape != (B,) or target_lengths.shape != (B,):
+        raise ValueError(f"input_lengths and target_lengths must be ({B},)")
+    if not 0 < targets.shape[1] <= MAX_LABELS or not 0 <= blank < lp.shape[2]:
+        raise ValueError(f"ctc takes 1-{MAX_LABELS} labels and a blank among the classes")
+    if any(t.device != lp.device for t in (targets, input_lengths, target_lengths)):
+        raise ValueError("ctc inputs must share one device")
+
+
+def _cuda_args(lp, targets, input_lengths, target_lengths):
+    if lp.device.type != "cuda":
+        raise ValueError(f"ctc runs on cuda or cpu, not {lp.device}")
+    return (lp.float().contiguous(), targets.to(torch.int64).contiguous(),
+            input_lengths.to(torch.int64).contiguous(), target_lengths.to(torch.int64).contiguous())
+
+
+def ctc_forward(lp, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
+    """(nll (B,), alpha (B, T, 2S+1)), float32. A CPU tensor takes the plain
+    version; a CUDA tensor launches ``ctc_alpha_kernel`` or raises."""
+    _check(lp, targets, input_lengths, target_lengths, blank)
+    if lp.device.type == "cpu":
+        return ctc_forward_plain(lp.float(), targets, input_lengths, target_lengths, blank)
+    lp, targets, il, tl = _cuda_args(lp, targets, input_lengths, target_lengths)
+    B, T, C = lp.shape
+    S = targets.shape[1]
+    alpha = torch.empty((B, T, 2 * S + 1), dtype=torch.float32, device=lp.device)
+    nll = torch.empty((B,), dtype=torch.float32, device=lp.device)
+    code = build.library("ctc_loss").ctc_forward_f32(
+        lp.data_ptr(), targets.data_ptr(), il.data_ptr(), tl.data_ptr(), alpha.data_ptr(),
+        nll.data_ptr(), B, T, C, S, blank, build.current_stream_ptr(lp.device))
+    build.check("ctc_loss", code)
+    ctc_forward.launches += 1
+    return nll, alpha
+
+
+def ctc_backward(lp, targets, input_lengths, target_lengths, alpha, nll, grad_nll,
+                 blank: int = BLANK_ID):
+    """d(sum_b grad_nll[b] nll[b]) / d lp, (B, T, C) float32. A CPU tensor
+    takes the plain version; a CUDA tensor launches ``ctc_beta_kernel`` and
+    ``ctc_grad_kernel`` or raises."""
+    _check(lp, targets, input_lengths, target_lengths, blank)
+    if lp.device.type == "cpu":
+        return ctc_backward_plain(lp.float(), targets, input_lengths, target_lengths, alpha, nll,
+                                  grad_nll, blank)
+    lp, targets, il, tl = _cuda_args(lp, targets, input_lengths, target_lengths)
+    B, T, C = lp.shape
+    S = targets.shape[1]
+    beta = torch.empty_like(alpha)
+    grad = torch.empty_like(lp)
+    g = grad_nll.float().contiguous()
+    code = build.library("ctc_loss").ctc_backward_f32(
+        lp.data_ptr(), targets.data_ptr(), il.data_ptr(), tl.data_ptr(), alpha.data_ptr(),
+        nll.data_ptr(), g.data_ptr(), beta.data_ptr(), grad.data_ptr(), B, T, C, S, blank,
+        build.current_stream_ptr(lp.device))
+    build.check("ctc_loss", code)
+    ctc_backward.launches += 1
+    return grad
+
+
+ctc_forward.launches = 0
+ctc_backward.launches = 0
+
+
+class CTCNLL(torch.autograd.Function):
+    """Per-sequence CTC negative log-likelihood, differentiable in the
+    log-probabilities: ``ctc_forward``, then ``ctc_backward``."""
+
+    @staticmethod
+    def forward(ctx, lp, targets, input_lengths, target_lengths, blank):
+        nll, alpha = ctc_forward(lp, targets, input_lengths, target_lengths, blank)
+        ctx.save_for_backward(lp, targets, input_lengths, target_lengths, alpha, nll)
+        ctx.blank = blank
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        lp, targets, il, tl, alpha, nll = ctx.saved_tensors
+        grad = ctc_backward(lp, targets, il, tl, alpha, nll, grad_nll, ctx.blank)
+        return grad.to(lp.dtype), None, None, None, None
+
+
+def ctc_nll(log_probs, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
+    """(B,) negative log-likelihoods of ``targets`` under ``log_probs``
+    (B, T, C), batch first; ``inf`` where no alignment exists."""
+    return CTCNLL.apply(log_probs, targets, input_lengths, target_lengths, blank)
 
 
 def ctc_loss(
@@ -28,7 +216,7 @@ def ctc_loss(
     input_lengths: torch.Tensor,  # (B,)
     targets: torch.Tensor,  # (B, S) target ids, no blanks
     target_lengths: torch.Tensor,  # (B,)
-    n_examples: int,  # the batch's first n_examples rows are real examples
+    n_examples,  # the batch's first n_examples rows are real: an int or a 0-dim tensor
     blank: int = BLANK_ID,
     row_offset: int = 0,
 ) -> torch.Tensor:
@@ -36,12 +224,9 @@ def ctc_loss(
     over ``n_examples``. On a mesh the rows given are a rank's, from global
     row ``row_offset`` on, and the value is the rank's share of that mean:
     its real rows' sum over the batch's ``n_examples``."""
-    local = min(max(int(n_examples) - row_offset, 0), log_probs.shape[0])
-    if local == 0:  # no real row here: a zero that keeps the graph whole
-        return log_probs[:0].sum()
-    per_seq = F.ctc_loss(
-        log_probs[:local].transpose(0, 1), targets[:local], input_lengths[:local],
-        target_lengths[:local], blank=blank, reduction="none",
-    )
-    per_len = per_seq / target_lengths[:local].clamp(min=1).to(per_seq.dtype)
-    return per_len.sum() / max(int(n_examples), 1)
+    dev = log_probs.device
+    n = torch.as_tensor(n_examples, device=dev)
+    real = torch.arange(log_probs.shape[0], device=dev) + row_offset < n
+    per_seq = ctc_nll(log_probs, targets, input_lengths, target_lengths, blank)
+    per_len = per_seq / target_lengths.clamp(min=1).to(per_seq.dtype)
+    return torch.where(real, per_len, 0.0).sum() / n.clamp(min=1).to(per_seq.dtype)

@@ -123,14 +123,18 @@ def shard_dim(name: str) -> Optional[int]:
     return spec.index("model") if "model" in spec else None
 
 
-_SEQ_PARTIAL = re.compile(r"^transformerEncoder\.layers\.\d+\.(norm1|norm2|linear2\.bias)")
+_SEQ_PARTIAL = re.compile(r"^transformerEncoder\.layers\.\d+\.(norm1|norm2|linear2\.bias"
+                          r"|ff1_|ff2_|attn_norm|conv_module\.|final_norm)")
 
 
 def grad_sums_over_model(name: str, sequence_shard: bool) -> bool:
     """Whether a replicated parameter's gradient is a partial sum over the
     model axis: it is fed by work split over that axis. The relative-
     position tables serve only the rank's heads; under ``sequence_shard``
-    the encoder's norms and ``linear2`` bias act on the rank's time shard.
+    the encoder's norms and ``linear2`` bias act on the rank's time shard,
+    and so does every replicated parameter of a conformer block (its
+    feed-forwards, norms and conv module; the depthwise conv keeps the
+    rank's shard of its output).
     Everything else replicated meets replicated activations, and its
     gradient is already whole on every model rank."""
     if name.endswith("relative_positional.embeddings"):
@@ -390,9 +394,6 @@ def shard_params(model: nn.Module, mesh: Mesh, sequence_shard: bool = False) -> 
     the optimizer after this, so AdamW's moments are per shard."""
     from emg_tpu_torch.models.attention import MultiHeadAttention
 
-    if getattr(model.cfg, "encoder_kind", "transformer") != "transformer":
-        raise NotImplementedError("a device mesh trains the transformer encoder; the conformer "
-                                  "is not yet sharded")
     M = mesh.model
     for name, p in list(model.named_parameters()):
         dim = shard_dim(name)

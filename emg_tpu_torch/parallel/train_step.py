@@ -48,6 +48,16 @@ draws whose knob is on, so with every knob at 0 the sequence is the one
 without recipes), then the time shift, then the dropout masks in forward
 order. Every draw is made on the generator's device; none is read back to
 the host.
+
+The host and the device split as a CUDA graph needs them (``train/
+window.py`` replays ``microbatch_body``): the host side (``schedule``,
+``advance``, ``set_lr``, ``stage_batch``) knows each batch's counts and
+the counters, decides the apply and writes the LR and the batch into
+device tensors; the body reads every count (valid rows, real examples,
+teacher length, CE tokens) as a 0-dim device tensor, masks where the JAX
+step masks and slices nothing by a host value, so its kernels depend on
+the batch's shapes alone. On the card AdamW is ``capturable`` with a
+device LR (``train/state.py``), on every path.
 """
 
 from __future__ import annotations
@@ -71,41 +81,65 @@ def step_seed(seed: int, microbatches: int) -> int:
     return (int(seed) * 1_000_003 + int(microbatches)) % (1 << 63)
 
 
-def batch_to_device(batch: PackedBatch, device, mesh=None) -> Dict[str, object]:
-    """A host ``PackedBatch`` as device tensors, with the host integers the
-    losses and the recipe draws go by: ``n_examples``, the true teacher
-    length ``seq_len``, the CE's target token count ``n_tokens``, the
-    first utterance's global index ``row_offset`` and the batch's shapes
+def stage_batch(batch: PackedBatch, mesh=None, pin: bool = False):
+    """A host ``PackedBatch`` as the CPU tensors the step copies to the
+    device, and the host facts it goes by. The tensors: the packed rows as
+    staged (int16 or float32), ``offsets``, ``lengths``, ``targets``,
+    ``target_lengths`` and ``counts``, one int64 vector of the valid packed
+    rows, the real examples, the true teacher length and the CE's target
+    token count (each a 0-dim tensor on the device, so no branch or slice
+    of the step reads it on the host). The facts: ``n_examples``, the first
+    utterance's global index ``row_offset`` and the batch's shapes
     (``packed_shape``, ``n_targets``). On a ``mesh`` the tensors are the
-    rank's block of the batch and the integers stay global."""
+    rank's block of the batch and the counts stay global. ``pin`` puts the
+    tensors in page-locked memory, for copies that do not block the host."""
     from emg_tpu_torch.text.phonemes import PAD_ID
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
     n = int(batch.n_examples)
-    extra = {"row_offset": 0, "packed_shape": tuple(batch.packed_raw.shape),
-             "n_targets": len(batch.lengths),
-             "n_tokens": int((np.asarray(batch.targets)[:n, 1:] != PAD_ID).sum())}
-    seq_len = int(np.max(batch.target_lengths)) - 1
+    host = {"n_examples": n, "row_offset": 0, "packed_shape": tuple(batch.packed_raw.shape),
+            "n_targets": len(batch.lengths)}
+    counts = [int(batch.n_rows), n, int(np.max(batch.target_lengths)) - 1,
+              int((np.asarray(batch.targets)[:n, 1:] != PAD_ID).sum())]
     if mesh is not None:
         from emg_tpu_torch.parallel.mesh import shard_batch
 
         local = shard_batch(batch, mesh)
-        extra.update(row_offset=local.row_offset, packed_shape=local.packed_shape,
-                     n_targets=local.n_targets)
+        host.update(row_offset=local.row_offset, packed_shape=local.packed_shape,
+                    n_targets=local.n_targets)
         batch = local.batch
+
+    def t(a, dtype=None):
+        out = torch.as_tensor(np.asarray(a), dtype=dtype)
+        return out.pin_memory() if pin else out
+
+    tensors = {"packed_raw": t(batch.packed_raw), "offsets": t(batch.offsets, torch.int64),
+               "lengths": t(batch.lengths, torch.int64), "targets": t(batch.targets, torch.int64),
+               "target_lengths": t(batch.target_lengths, torch.int64),
+               "counts": t(counts, torch.int64)}
+    return tensors, host
+
+
+def device_batch(tensors: Dict[str, torch.Tensor], host: Dict[str, object]) -> Dict[str, object]:
+    """The step's view of staged device tensors: the packed rows
+    dequantized to float32, the counts as 0-dim tensors (``n_rows``,
+    ``n_examples``, ``seq_len``, ``n_tokens``), and the host facts that the
+    batch's shapes fix."""
+    counts = tensors["counts"]
     return {
-        "packed_raw": dequantize_packed_raw(t(batch.packed_raw)),
-        "n_rows": int(batch.n_rows),
-        "offsets": t(batch.offsets, torch.int64),
-        "lengths": t(batch.lengths, torch.int64),
-        "targets": t(batch.targets, torch.int64),
-        "target_lengths": t(batch.target_lengths, torch.int64),
-        "n_examples": n,
-        "seq_len": seq_len,
-        **extra,
+        "packed_raw": dequantize_packed_raw(tensors["packed_raw"]),
+        "offsets": tensors["offsets"], "lengths": tensors["lengths"],
+        "targets": tensors["targets"], "target_lengths": tensors["target_lengths"],
+        "n_rows": counts[0], "n_examples": counts[1], "seq_len": counts[2],
+        "n_tokens": counts[3],
+        **{k: host[k] for k in ("row_offset", "packed_shape", "n_targets")},
     }
+
+
+def batch_to_device(batch: PackedBatch, device, mesh=None) -> Dict[str, object]:
+    """A host ``PackedBatch`` on the device as the losses and the model
+    take it (``stage_batch``, then ``device_batch``)."""
+    tensors, host = stage_batch(batch, mesh)
+    return device_batch({k: v.to(device) for k, v in tensors.items()}, host)
 
 
 def compute_losses(model, batch: Dict[str, object], max_frames: int,
@@ -291,59 +325,119 @@ class _Clock:
             self.sink.append(dict(self.times, **counts))
 
 
+@dataclass
+class Schedule:
+    """A microbatch's host-side values: the scheduled-sampling probability
+    and the warmup LR at its microbatch counter, and whether its example
+    count triggers an AdamW apply."""
+    ss_prob: float
+    lr: float
+    applied: bool
+
+
+def schedule(state: TrainState, cfg, n_examples: int) -> Schedule:
+    """The next microbatch's ``Schedule``, from the host counters alone."""
+    mb = state.microbatches
+    return Schedule(
+        ss_prob=cfg.scheduled_sampling_max_prob * min(1.0, mb / max(cfg.scheduled_sampling_ramp, 1)),
+        lr=warmup_lr(state.cfg, mb),
+        applied=state.accum_examples + n_examples >= state.cfg.batch_size_grad)
+
+
+def advance(state: TrainState, n_examples: int, applied: bool) -> None:
+    """The host counters after a microbatch of ``n_examples``."""
+    if applied:
+        state.accum_examples = 0
+        state.updates += 1
+    else:
+        state.accum_examples += n_examples
+    state.microbatches += 1
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The LR of the next apply: written into the device tensor a CUDA
+    graph reads (``train/state.py::make_optimizer``), or set on the CPU."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def ss_prob_tensor(cfg, ss_prob: float, device) -> Optional[torch.Tensor]:
+    """The scheduled-sampling probability as a 0-dim float32 device tensor
+    (None where scheduled sampling is off)."""
+    if cfg.scheduled_sampling_max_prob <= 0:
+        return None
+    return torch.full((), ss_prob, dtype=torch.float32, device=device)
+
+
+def microbatch_body(state: TrainState, cfg, tensors: Dict[str, torch.Tensor],
+                    host: Dict[str, object], max_frames: int, generator: torch.Generator,
+                    ss_prob: Optional[torch.Tensor], applied: bool,
+                    clock: Optional["_Clock"] = None) -> Dict[str, torch.Tensor]:
+    """One microbatch on the device, from staged tensors (``stage_batch``)
+    and a generator seeded for it: the recipes' draws, forward and backward
+    in train mode, the gradients added into the accumulated sums and, where
+    ``applied``, AdamW's apply at the LR ``set_lr`` wrote. Returns the loss
+    metrics as device tensors. Every value it reads is on the device or
+    fixed by the batch's shapes and ``applied``, so a CUDA graph of it
+    replays for every batch of those shapes (``train/window.py``)."""
+    model = state.model.train()
+    mesh = model.mesh
+    dev = device_batch(tensors, host)
+    targets = dev["targets"]
+    draws = draw_recipe_randomness(generator, cfg, dev["packed_shape"], targets.shape[1] - 1,
+                                   dev["n_targets"], ss_prob)
+    draws = local_draws(draws, dev)
+    dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
+    tgt_in = None
+    if draws.ss_mix is not None:
+        tgt_in = scheduled_sampling_inputs(model, dev, max_frames, draws.ss_mix)
+    dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
+    loss = combined_loss(dec_loss, enc_loss, cfg.alpha_loss)
+    if clock is not None:
+        clock.mark("forward")
+    if mesh is None:
+        loss.backward()
+    else:
+        backward_on_mesh(model, loss)
+    if clock is not None:
+        clock.mark("backward")
+    if applied:
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=False)
+    return reported({"loss": loss.detach(), "dec_loss": dec_loss.detach(),
+                     "enc_loss": enc_loss.detach()}, mesh)
+
+
 def make_train_step(cfg, step_times: Optional[List[dict]] = None):
     """The microbatch step: train(state, batch, max_frames, generator) ->
-    metrics. It runs forward and backward in train mode, adds the gradients
-    into the accumulated sums, and applies AdamW at the microbatch's warmup
-    LR when the summed example count reaches batch_size_grad. With
-    ``step_times`` (a list), each step appends its synchronized
-    forward/backward/optimizer ms."""
-    alpha = cfg.alpha_loss
+    metrics. It reseeds the generator for the microbatch, copies the batch
+    to the device and runs ``microbatch_body``: forward and backward in
+    train mode, the gradients added into the accumulated sums, and AdamW at
+    the microbatch's warmup LR when the summed example count reaches
+    batch_size_grad. With ``step_times`` (a list), each step appends its
+    synchronized forward/backward/optimizer ms."""
 
     def train_step(state: TrainState, batch: PackedBatch, max_frames: int,
                    generator: torch.Generator) -> dict:
-        model = state.model.train()
-        mesh = model.mesh
+        model = state.model
         clock = _Clock(step_times, model.device)
         generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
-        dev = batch_to_device(batch, model.device, mesh)
-        targets = dev["targets"]
-        ss_prob = cfg.scheduled_sampling_max_prob * min(
-            1.0, state.microbatches / max(cfg.scheduled_sampling_ramp, 1))
-        draws = draw_recipe_randomness(generator, cfg, dev["packed_shape"],
-                                       targets.shape[1] - 1, dev["n_targets"], ss_prob)
-        draws = local_draws(draws, dev)
-        dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
-        tgt_in = None
-        if draws.ss_mix is not None:
-            tgt_in = scheduled_sampling_inputs(model, dev, max_frames, draws.ss_mix)
-        dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
-        loss = combined_loss(dec_loss, enc_loss, alpha)
-        clock.mark("forward")
-        if mesh is None:
-            loss.backward()
-        else:
-            backward_on_mesh(model, loss)
-        clock.mark("backward")
-        n_accum = state.accum_examples + dev["n_examples"]
-        lr = warmup_lr(state.cfg, state.microbatches)
-        applied = n_accum >= state.cfg.batch_size_grad
-        if applied:
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=False)
-            state.accum_examples = 0
-            state.updates += 1
-        else:
-            state.accum_examples = n_accum
-        state.microbatches += 1
+        tensors, host = stage_batch(batch, model.mesh)
+        tensors = {k: v.to(model.device) for k, v in tensors.items()}
+        plan = schedule(state, cfg, host["n_examples"])
+        if plan.applied:
+            set_lr(state.optimizer, plan.lr)
+        metrics = microbatch_body(state, cfg, tensors, host, max_frames, generator,
+                                  ss_prob_tensor(cfg, plan.ss_prob, model.device), plan.applied,
+                                  clock)
+        advance(state, host["n_examples"], plan.applied)
         clock.mark("optimizer")
-        clock.close(examples=dev["n_examples"], frames=int(np.sum(batch.lengths)),
-                    max_frames=max_frames, applied=applied)
-        metrics = reported({"loss": loss.detach(), "dec_loss": dec_loss.detach(),
-                            "enc_loss": enc_loss.detach()}, mesh)
-        return {**metrics, "lr": lr, "applied": applied}
+        clock.close(examples=host["n_examples"], frames=int(np.sum(batch.lengths)),
+                    max_frames=max_frames, applied=plan.applied)
+        return {**metrics, "lr": plan.lr, "applied": plan.applied}
 
     return train_step
 

@@ -10,7 +10,10 @@ accumulation that sums the raw per-microbatch gradients and applies them
 once the summed example count reaches ``batch_size_grad``.
 
 The JAX package's ``fused_adamw`` is ``torch.optim.AdamW``'s update written
-as one XLA pass per leaf, so the port uses ``torch.optim.AdamW`` itself.
+as one XLA pass per leaf, so the port uses ``torch.optim.AdamW`` itself. On
+a CUDA device it is built ``capturable`` with its LR a device tensor, so
+that a CUDA graph holds the apply (``train/window.py``) and every apply,
+graphed or not, runs the same arithmetic; on the CPU it takes host floats.
 The accumulated gradients live in each parameter's ``.grad``: ``backward``
 adds every microbatch's gradient into it, and an apply zeroes it. Every
 parameter starts with a zero ``.grad``, so AdamW updates every tensor at
@@ -38,8 +41,22 @@ def warmup_lr(cfg: TrainConfig, microbatches: int) -> float:
 
 
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=0.01)
+    params = list(params)
+    device = params[0].device
+    if device.type != "cuda":
+        return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+    opt = torch.optim.AdamW(params, lr=torch.tensor(cfg.learning_rate, device=device),
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, capturable=True)
+
+    def lr_on_device(optimizer):
+        # a loaded state dict brings its LR back as saved (a CPU tensor
+        # after map_location="cpu"): put it back on the card
+        for group in optimizer.param_groups:
+            group["lr"] = torch.as_tensor(group["lr"], dtype=torch.float32).to(device)
+
+    opt.register_load_state_dict_post_hook(lr_on_device)
+    return opt
 
 
 @dataclass

@@ -12,10 +12,15 @@ zero.
 
 Training batches are staged as int16 raw rows (``train.stage_int16``, the
 JAX trainer's default), which the step dequantizes on the device; eval and
-PER batches stay float32, as in the JAX package. The JAX trainer's fused
-accumulation windows and prefetch threads are XLA dispatch devices that
-compute the same math; here each microbatch is its own step
-(``train.fused_window=True`` raises). ``--resume`` continues from the
+PER batches stay float32, as in the JAX package. The epoch's microbatches
+run in the fused accumulation windows of ``train/window.py`` where
+``train.fused_window`` resolves on (auto: on a CUDA device): planned ahead
+as JAX's are, each window longer than one microbatch replayed as one CUDA
+graph (eagerly on the CPU), every other microbatch its own step; the
+numbers are the per-microbatch steps'. A trainer whose ``step_times`` is
+set (the synchronized forward/backward/optimizer split) runs every
+microbatch as its own step. The JAX trainer's prefetch threads are an XLA
+dispatch device and have no counterpart. ``--resume`` continues from the
 epoch after the one saved in ``latest``.
 
 Device mesh (``parallel.data_axis`` / ``parallel.model_axis``, as the JAX
@@ -64,6 +69,7 @@ from emg_tpu_torch.text.metrics import wer
 from emg_tpu_torch.train.checkpoint import CheckpointManager, load_weights, merge_params
 from emg_tpu_torch.train.metrics_writer import MetricsWriter, NullMetricsWriter
 from emg_tpu_torch.train.state import TrainState, create_train_state
+from emg_tpu_torch.train.window import WindowRunner, plan_windows, windows_enabled
 
 log = logging.getLogger(__name__)
 
@@ -79,12 +85,14 @@ class Trainer:
 
     def __init__(self, config: Config, trainset: EMGDataset, devset: EMGDataset,
                  writer: MetricsWriter, device="cuda"):
-        if config.train.fused_window:
-            raise NotImplementedError("train.fused_window is not yet ported "
-                                      "(per-microbatch steps compute the same math)")
         self.config = config
         self.device = resolve_device(device)
         self.mesh = self._build_mesh()
+        # fused accumulation windows (train/window.py), off while step_times
+        # asks for each microbatch's synchronized split
+        self.windows = (WindowRunner(config.train, self.device)
+                        if windows_enabled(config.train, self.device, self.mesh)
+                        and self.step_times is None else None)
         self.trainset = trainset
         self.devset = devset
         # only rank 0 writes metrics (the reported losses are global sums,
@@ -261,13 +269,25 @@ class Trainer:
         for epoch_idx in range(start_epoch, cfg.n_epochs):
             losses: List[float] = []
             epoch_start = time.perf_counter()
-            for step, idxs in enumerate(train_sampler):
-                pb, max_frames, _ = self._prepare(self.trainset, idxs)
-                if cfg.stage_int16:
-                    pb = quantize_packed_raw(pb)
-                pending.append(self.train_step(state, pb, max_frames, self.generator))
-                batch_idx += 1
-                if (step + 1) % cfg.report_loss == 0:
+            epoch_batches = list(train_sampler)
+            windows = (plan_windows(epoch_batches, state.accum_examples, cfg)
+                       if self.windows is not None else [1] * len(epoch_batches))
+            step = 0
+            for wlen in windows:
+                group = []
+                for idxs in epoch_batches[step: step + wlen]:
+                    pb, max_frames, _ = self._prepare(self.trainset, idxs)
+                    if cfg.stage_int16:
+                        pb = quantize_packed_raw(pb)
+                    group.append((pb, max_frames))
+                metrics = self.windows.run(state, group) if wlen > 1 else None
+                if metrics is None:  # a window of one, or past the signature cap
+                    metrics = [self.train_step(state, pb, max_frames, self.generator)
+                               for pb, max_frames in group]
+                pending.extend(metrics)
+                batch_idx += wlen
+                step += wlen
+                if step % cfg.report_loss == 0:
                     drain_pending()
                     ev = self.evaluation_loop(state, dev_sampler)
                     n = max(run_train["n"], 1)

@@ -2,9 +2,9 @@
 CPU, as the JAX package's CLI does (``emg_tpu/cli.py``: ``--debug`` forces
 the CPU platform).
 
-- ``model.remat`` (the JAX package rematerializes encoder layers) raises
-  ``NotImplementedError`` when the model is built, rather than being
-  accepted and ignored.
+- ``model.remat`` (the JAX package rematerializes encoder layers) builds
+  and trains: the model takes a train step (tests/test_torch_remat.py
+  holds the step to JAX's and to the step without remat).
 - ``--debug`` hands ``device="cpu"`` to both CLI modes, whatever
   ``--device`` says.
 - ``data.dsp_backend="scipy"`` (the JAX package's host scipy DSP) raises
@@ -24,6 +24,7 @@ from __future__ import annotations
 import os
 
 import pytest
+import torch
 
 from emg_tpu_torch import cli
 from emg_tpu_torch.config import Config, ModelConfig
@@ -37,12 +38,23 @@ SMALL = dict(model_size=16, feed_forward_layer_size=32, num_layers_encoder=1,
              num_layers_decoder=1, n_heads_encoder=2, n_heads_decoder=2, relative_distance=8)
 
 
-@pytest.mark.parametrize("option, pattern", [
+@pytest.mark.parametrize("option, attribute", [
     (dict(remat=True), "remat"),
 ], ids=["remat"])
-def test_unported_model_options_raise(option, pattern):
-    with pytest.raises(NotImplementedError, match=pattern):
-        EMGModel(ModelConfig(**SMALL, **option), device="cpu")
+def test_unported_model_options_raise(option, attribute):
+    """Each model option of the JAX package builds and trains (none
+    raises)."""
+    from emg_tpu_torch.config import TrainConfig
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+    from tests.test_torch_sharded_step import MAX_FRAMES, toy_batch
+
+    model = EMGModel(ModelConfig(**SMALL, **option), device="cpu")
+    assert getattr(model.transformerEncoder, attribute) is True
+    cfg = TrainConfig(batch_size_grad=10 ** 6)
+    metrics = make_train_step(cfg)(create_train_state(model, cfg), toy_batch(), MAX_FRAMES,
+                                   torch.Generator())
+    assert torch.isfinite(metrics["loss"])
 
 
 @pytest.mark.parametrize("mode, extra", [

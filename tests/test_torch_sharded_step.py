@@ -25,6 +25,14 @@ layers, 2 heads, FF 32.
   gradient).
 - K4's and K5's plain versions at nonzero offsets give the corresponding
   blocks of the whole batch's, bitwise.
+
+Each geometry runs twice: with the transformer encoder (the cases named by
+their geometry alone) and with the conformer (``conformer_*``: the JAX
+conformer of the same widths, its depthwise kernel 5 wide, so under
+sequence_shard the conv reads two frames across each rank's shard edge at
+32 frames a rank), to the same bounds against JAX's single-device
+conformer step and the port's single-rank one; its 2x2 loss also against
+JAX's 2x2 mesh step.
 """
 
 import dataclasses
@@ -49,6 +57,17 @@ LR = 1e-3
 GEOMETRIES = {"2x1": (2, 1, False), "1x2": (1, 2, False), "2x2": (2, 2, False),
               "1x2_seq": (1, 2, True), "2x2_seq": (2, 2, True)}
 DROPOUT = 0.2
+# the encoders, as model flags over TINY
+ENCODERS = {"transformer": {},
+            "conformer": dict(encoder_kind="conformer", conformer_conv_kernel_size=5)}
+CASES = [(encoder, geometry) for encoder in ENCODERS for geometry in GEOMETRIES]
+
+
+def case_id(encoder: str, geometry: str) -> str:
+    return geometry if encoder == "transformer" else f"{encoder}_{geometry}"
+
+
+CASE_IDS = [case_id(*c) for c in CASES]
 
 
 def toy_batch():
@@ -67,16 +86,16 @@ def _no_step_apply():
     return TrainConfig(batch_size_grad=10 ** 6)
 
 
-def _rank_steps(runs, r, out_dir):
+def _rank_steps(runs, out_dir):
     """One rank: for each (name, geometry, model kwargs, weights or None,
-    train config) run one step on the mesh and save what the test reads."""
+    train config, time shift) run one step on the mesh and save what the
+    test reads."""
     import emg_tpu_torch.models.model as model_module
 
     torch.set_num_threads(1)
-    if r is not None:
-        model_module.draw_shift = lambda generator, device: torch.tensor([r], device=device)
     batch = toy_batch()
-    for name, (data, model_axis, seq), kwargs, weights, tcfg in runs:
+    for name, (data, model_axis, seq), kwargs, weights, tcfg, r in runs:
+        model_module.draw_shift = lambda generator, device, r=r: torch.tensor([r], device=device)
         mesh = Mesh(MeshShape(data, model_axis), "cpu")
         model = EMGModel(ModelConfig(**kwargs), device="cpu")
         if weights is not None:
@@ -92,14 +111,16 @@ def _rank_steps(runs, r, out_dir):
         torch.save(result, os.path.join(out_dir, f"{name}.{mesh.rank}.pt"))
 
 
-def _jax_reference():
-    """The JAX tiny model's initial weights, its single-device step from
-    them (loss, parameters and statistics after one apply), the time shift
-    that step drew and its 2x2 mesh step's loss."""
+def _jax_reference(extra=None):
+    """The JAX tiny model's initial weights (its encoder set by the model
+    flags ``extra``), its single-device step from them (loss, parameters
+    and statistics after one apply), the time shift that step drew and its
+    2x2 mesh step's loss."""
     import jax
 
     import emg_tpu.models.model as jax_model_module
     from emg_tpu.config import TrainConfig as JaxTrainConfig
+    from emg_tpu.models.model import EMGModel as JaxEMGModel
     from emg_tpu.data.batching import PackedBatch as JaxPackedBatch
     from emg_tpu.parallel import make_train_step as jax_make_train_step
     from emg_tpu.parallel.mesh import make_mesh, replicated
@@ -110,6 +131,8 @@ def _jax_reference():
     from tests.test_train_step import tiny_model
 
     model = tiny_model()
+    if extra:
+        model = JaxEMGModel(dataclasses.replace(model.cfg, **extra))
     pb = toy_batch()
     jb = JaxPackedBatch(**{f.name: getattr(pb, f.name) for f in dataclasses.fields(pb)})
     variables = model.init({"params": jax.random.PRNGKey(0)}, jb.packed_raw, jb.n_rows,
@@ -147,39 +170,49 @@ def _jax_reference():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every geometry's rank results: two launches (two ranks, four ranks),
-    each running its geometries at dropout 0 on JAX's weights, then at
-    dropout 0.2 on the port's seeded weights; the single-rank port step at
-    dropout 0.2 for those."""
+    """Every case's rank results: two launches (two ranks, four ranks),
+    each running, for each encoder, its geometries at dropout 0 on JAX's
+    weights, then at dropout 0.2 on the port's seeded weights; and per
+    encoder the single-rank port step at dropout 0.2 for those."""
     out = str(tmp_path_factory.mktemp("sharded_step"))
-    ref = _jax_reference()
+    refs = {encoder: _jax_reference(extra) for encoder, extra in ENCODERS.items()}
     jax_tcfg = TrainConfig(batch_size_grad=4, learning_rate=LR, learning_rate_warmup=10)
-    dropout = dict(TINY, dropout_model=DROPOUT, dropout_pos_emb=DROPOUT)
-    tiny = dict(TINY, dropout_model=0.0, dropout_pos_emb=0.0)
     for world in (2, 4):
-        geoms = {n: g for n, g in GEOMETRIES.items() if g[0] * g[1] == world}
-        plan = ([(n, g, tiny, ref["weights"], jax_tcfg) for n, g in geoms.items()]
-                + [(f"{n}_dropout", g, dropout, None, _no_step_apply()) for n, g in geoms.items()])
-        launch(_rank_steps, (plan, ref["r"], out), world, "cpu")
+        plan = []
+        for encoder, extra in ENCODERS.items():
+            ref = refs[encoder]
+            dropout = dict(TINY, **extra, dropout_model=DROPOUT, dropout_pos_emb=DROPOUT)
+            tiny = dict(TINY, **extra, dropout_model=0.0, dropout_pos_emb=0.0)
+            geoms = {n: g for n, g in GEOMETRIES.items() if g[0] * g[1] == world}
+            plan += ([(case_id(encoder, n), g, tiny, ref["weights"], jax_tcfg, ref["r"])
+                      for n, g in geoms.items()]
+                     + [(f"{case_id(encoder, n)}_dropout", g, dropout, None, _no_step_apply(),
+                         ref["r"]) for n, g in geoms.items()])
+        launch(_rank_steps, (plan, out), world, "cpu")
     import emg_tpu_torch.models.model as model_module
 
     real = model_module.draw_shift
-    model_module.draw_shift = lambda generator, device: torch.tensor([ref["r"]], device=device)
-    try:
-        single = EMGModel(ModelConfig(**dropout), device="cpu")
-        state = create_train_state(single, _no_step_apply())
-        metrics = make_train_step(_no_step_apply())(state, toy_batch(), MAX_FRAMES,
-                                                    torch.Generator())
-    finally:
-        model_module.draw_shift = real
-    ref["dropout"] = {"loss": float(metrics["loss"]),
-                      "grads": {n: p.grad.detach().clone() for n, p in single.named_parameters()}}
+    for encoder, extra in ENCODERS.items():
+        ref = refs[encoder]
+        model_module.draw_shift = lambda generator, device: torch.tensor([ref["r"]], device=device)
+        try:
+            single = EMGModel(ModelConfig(**dict(TINY, **extra, dropout_model=DROPOUT,
+                                                 dropout_pos_emb=DROPOUT)), device="cpu")
+            state = create_train_state(single, _no_step_apply())
+            metrics = make_train_step(_no_step_apply())(state, toy_batch(), MAX_FRAMES,
+                                                        torch.Generator())
+        finally:
+            model_module.draw_shift = real
+        ref["dropout"] = {"loss": float(metrics["loss"]),
+                          "grads": {n: p.grad.detach().clone()
+                                    for n, p in single.named_parameters()}}
 
-    def load(name):
+    def load(encoder, name):
         data, model_axis, _ = GEOMETRIES[name.split("_dropout")[0]]
-        return [torch.load(os.path.join(out, f"{name}.{i}.pt")) for i in range(data * model_axis)]
+        return [torch.load(os.path.join(out, f"{case_id(encoder, name)}.{i}.pt"))
+                for i in range(data * model_axis)]
 
-    return ref, load
+    return refs, load
 
 
 def _bn_fed_bias(name: str) -> bool:
@@ -187,10 +220,11 @@ def _bn_fed_bias(name: str) -> bool:
                                                               "residual_path.bias"))
 
 
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_sharded_step_matches_jax(runs, geometry):
-    ref, load = runs
-    ranks = load(geometry)
+@pytest.mark.parametrize("encoder, geometry", CASES, ids=CASE_IDS)
+def test_sharded_step_matches_jax(runs, encoder, geometry):
+    refs, load = runs
+    ref = refs[encoder]
+    ranks = load(encoder, geometry)
     assert ref["applied"] and all(r["applied"] for r in ranks)
     for r in ranks:
         np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
@@ -215,17 +249,26 @@ def test_sharded_step_matches_jax(runs, geometry):
             assert torch.equal(r["weights"][name], w), name
 
 
-def test_2x2_loss_matches_jax_mesh_step(runs):
-    ref, load = runs
+def _mesh_loss_matches(runs, encoder):
+    refs, load = runs
+    ref = refs[encoder]
     np.testing.assert_allclose(ref["mesh_loss"], ref["loss"], rtol=1e-5)
-    np.testing.assert_allclose(load("2x2")[0]["loss"], ref["mesh_loss"], rtol=1e-5)
+    np.testing.assert_allclose(load(encoder, "2x2")[0]["loss"], ref["mesh_loss"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_sharded_dropout_matches_single_rank(runs, geometry):
-    ref, load = runs
-    want = ref["dropout"]
-    ranks = load(f"{geometry}_dropout")
+def test_2x2_loss_matches_jax_mesh_step(runs):
+    _mesh_loss_matches(runs, "transformer")
+
+
+def test_conformer_2x2_loss_matches_jax_mesh_step(runs):
+    _mesh_loss_matches(runs, "conformer")
+
+
+@pytest.mark.parametrize("encoder, geometry", CASES, ids=CASE_IDS)
+def test_sharded_dropout_matches_single_rank(runs, encoder, geometry):
+    refs, load = runs
+    want = refs[encoder]["dropout"]
+    ranks = load(encoder, f"{geometry}_dropout")
     largest = max(float(g.abs().max()) for g in want["grads"].values())
     for r in ranks:
         np.testing.assert_allclose(r["loss"], want["loss"], rtol=1e-5)
