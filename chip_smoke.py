@@ -108,7 +108,8 @@ Phases, in order; any failure exits non-zero:
      the same two ranks run one epoch of the CLI's train mode with
      --parallel.data_axis 2 (each joins through cli.main, as ranks that
      torchrun starts do; K1-K5 counted a rank), whose model.pt the greedy
-     path serves. After the ranks, K3-K5 at the shapes, offsets, key
+     path serves (then, in the same ranks, phase 13's conformer steps).
+     After the ranks, K3-K5 at the shapes, offsets, key
      padding and relative window the ranks' steps launched them with:
      each rank's block of the whole launch at its offsets, bitwise that
      launch's block, and their plain versions at the same offsets. The
@@ -127,11 +128,13 @@ Phases, in order; any failure exits non-zero:
      pool memory, every run's K3-K5 launches (a replay's counted each
      replay), each mode's warm ms a microbatch and one replay's idle share
      (torch.profiler); then the conformer (--model.encoder_kind conformer,
-     phase 8's microbatch) on 1x2 and sequence-sharded 1x2 meshes of two
+     phase 12's microbatch) on 1x2 and sequence-sharded 1x2 meshes of two
      ranks sharing the card (gloo) against the single-rank conformer step,
      with phase 12's bounds, each rank's warm step ms (host collectives,
-     not a scaling figure); no K2-K5 launch there (the conformer's
-     attention is unfused), the CTC kernels do. Phase 7 also records the
+     not a scaling figure): phase 12's ranks take these steps after their
+     CLI epoch (one launch serves both phases), and phase 13 checks what
+     they wrote; no K2-K5 launch there (the conformer's attention is
+     unfused), the CTC kernels do. Phase 7 also records the
      (B, T, S) its CTC ran at; the CTC kernels (csrc/ctc_loss.cu, in place
      of F.ctc_loss, whose lengths go through the host) are held against
      their plain version there and timed beside F.ctc_loss.
@@ -2734,13 +2737,24 @@ def mesh_geometry_result(out, name, world, layers, run=0):
     return result, failures
 
 
+def mesh_rank_runs(runs):
+    """A rank that takes part in several ``mesh_rank_steps`` runs, in order,
+    in one process group."""
+    for args in runs:
+        mesh_rank_steps(*args)
+
+
 def mesh_steps(argv, root, record, geometries=MESH_GEOMETRIES, share_card=True,
-               mesh_flags=("--parallel.data_axis", "2"), cli_epoch=True) -> dict:
+               mesh_flags=("--parallel.data_axis", "2"), cli_epoch=True,
+               extra_runs=()) -> dict:
     """The sharded steps of ``mesh_rank_steps`` (by default on two ranks
     sharing card 0; else one rank a card over NCCL), then K3-K5 at the
     inputs they launched with (``k345_at_mesh_launches``); with
     ``cli_epoch`` the ranks then run the CLI epoch that ``mesh_cli_epoch``
-    checks. The steps are checked here from what the ranks wrote."""
+    checks, and then each of ``extra_runs``, a function of (the batch,
+    max_frames) giving more ``mesh_rank_steps`` arguments (phase 13's
+    conformer steps, which its ``conformer_mesh`` checks). The steps are
+    checked here from what the ranks wrote."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.parallel.distributed import launch
 
@@ -2755,8 +2769,8 @@ def mesh_steps(argv, root, record, geometries=MESH_GEOMETRIES, share_card=True,
     cli_argv = argv + MESH_EPOCH_ARGS + list(mesh_flags) + [
         "--device", DEVICE, "--output_directory", os.path.join(root, "mesh_train")]
     t0 = time.perf_counter()
-    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, geometries,
-                             cli_argv if cli_epoch else None), world, DEVICE,
+    runs = [(cfg_argv, pb, max_frames, out, geometries, cli_argv if cli_epoch else None)]
+    launch(mesh_rank_runs, (runs + [run(pb, max_frames) for run in extra_runs],), world, DEVICE,
            share_card=share_card)
     result = dict(examples=len(idxs), max_frames=max_frames, rows=int(pb.packed_raw.shape[0]),
                   utterances=int(pb.lengths.shape[0]), launch_s=time.perf_counter() - t0,
@@ -2823,7 +2837,8 @@ def mesh_cli_epoch(argv, root, record, world: int = 2, own_launch_s=None) -> dic
 def multi_device(argv, root, record):
     t0 = time.perf_counter()
     k345_at_offsets(record)
-    steps = mesh_steps(argv, root, record)
+    steps = mesh_steps(argv, root, record, extra_runs=[
+        lambda pb, max_frames: conformer_mesh_run(argv, root, pb, max_frames)])
     epoch = mesh_cli_epoch(argv, root, record)
     record["mesh_phase_s"] = time.perf_counter() - t0
     log(f"phase 12 took {record['mesh_phase_s']:.1f} s")
@@ -3191,28 +3206,27 @@ def check_window_margin(window: dict, margin: dict) -> None:
                                  f"eager runs' margin {margin[key]})")
 
 
-def conformer_mesh(argv, root, record) -> dict:
-    """Phase 8's microbatch on the conformer (the flagship's widths,
-    --model.encoder_kind conformer; float32, dropout 0.2) on 1x2 and
-    sequence-sharded 1x2 meshes of two ranks sharing the card (gloo),
-    against the single-rank conformer step on the card, with phase 12's
-    bounds; none of K2-K5 launches (the conformer's attention is the
-    unfused path), the CTC kernels do."""
-    from emg_tpu_torch.config import Config
-    from emg_tpu_torch.parallel.distributed import launch
-
-    cfg_argv = argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9),
-                                    "--model.encoder_kind", "conformer"]
-    cfg = Config.from_args(cfg_argv)
-    idxs, pb, max_frames = largest_batch(cfg)
+def conformer_mesh_run(argv, root, pb, max_frames) -> tuple:
+    """``mesh_rank_steps``' arguments for phase 13's conformer steps, which
+    phase 12's ranks take after their own (one launch of the shared-card
+    ranks serves both phases): phase 12's microbatch on the conformer (the
+    flagship's widths, --model.encoder_kind conformer; float32, dropout
+    0.2) on CONFORMER_MESH."""
     out = os.path.join(root, "mesh_conformer")
     os.makedirs(out, exist_ok=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    launch(mesh_rank_steps, (cfg_argv, pb, max_frames, out, CONFORMER_MESH), 2, DEVICE,
-           share_card=True)
-    result = dict(examples=len(idxs), max_frames=max_frames, launch_s=time.perf_counter() - t0,
-                  geometries={})
+    cfg_argv = argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9),
+                                    "--model.encoder_kind", "conformer"]
+    return cfg_argv, pb, max_frames, out, CONFORMER_MESH
+
+
+def conformer_mesh(root, record) -> dict:
+    """Phase 13's conformer steps, which phase 12's two ranks sharing the
+    card (gloo) ran after their own (``conformer_mesh_run``): the 1x2 and
+    sequence-sharded 1x2 steps against the single-rank conformer step on
+    the card, with phase 12's bounds; no attention kernel launches there
+    (the conformer's attention is the unfused path), the CTC kernels do."""
+    out = os.path.join(root, "mesh_conformer")
+    result = dict(geometries={})
     failures = []
     for name, *_ in CONFORMER_MESH:
         result["geometries"][name], failed = mesh_geometry_result(out, name, 2, 0)
@@ -3232,8 +3246,12 @@ def conformer_mesh(argv, root, record) -> dict:
 def training_extras(argv, root, record):
     t0 = time.perf_counter()
     remat = remat_vs_plain(argv, record)
+    t1 = time.perf_counter()
     windows = fused_windows(root, record)
-    conformer = conformer_mesh(argv, root, record)
+    t2 = time.perf_counter()
+    conformer = conformer_mesh(root, record)
+    record["extras_parts_s"] = dict(remat=t1 - t0, fused_windows=t2 - t1,
+                                    conformer_mesh_check=time.perf_counter() - t2)
     record["extras_phase_s"] = time.perf_counter() - t0
     log(f"phase 13 took {record['extras_phase_s']:.1f} s")
     summary = dict(
