@@ -2969,8 +2969,8 @@ def remat_vs_plain(argv, record) -> dict:
     """Phase 8's microbatch (float32, dropout 0.2) with model.remat and
     without, from the same weights, batch and generator seeds: the loss
     bitwise, the gradients within phase 8's bounds, K3 twice a layer under
-    remat; each one's peak memory over its first step and a warm step's
-    CUDA-event and wall ms."""
+    remat; each one's peak memory over its first step, and the median of
+    three warm steps' CUDA-event and wall ms (the two taken in turn)."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.models.model import EMGModel
     from emg_tpu_torch.parallel.train_step import make_train_step
@@ -2980,11 +2980,12 @@ def remat_vs_plain(argv, record) -> dict:
     idxs, pb, max_frames = largest_batch(cfg)
     step = make_train_step(cfg.train)
     counters = kernel_counters()
-    runs = {}
+    runs, states = {}, {}
     for remat in (False, True):
         model_cfg = dataclasses.replace(cfg.model, remat=remat)
-        state = create_train_state(EMGModel(model_cfg, device=DEVICE,
-                                            generator=torch.Generator().manual_seed(0)), cfg.train)
+        state = states[remat] = create_train_state(
+            EMGModel(model_cfg, device=DEVICE, generator=torch.Generator().manual_seed(0)),
+            cfg.train)
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2994,19 +2995,27 @@ def remat_vs_plain(argv, record) -> dict:
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
-        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        step(state, pb, max_frames, torch.Generator(device=DEVICE))
-        end.record()
-        torch.cuda.synchronize()
-        runs[remat] = dict(loss=float(metrics["loss"]), grads=grads, launches=launches,
-                           peak_bytes=peak, state_bytes=before, step_peak_bytes=peak - before,
-                           warm_step_ms=start.elapsed_time(end),
-                           warm_step_wall_ms=(time.perf_counter() - t0) * 1e3)
-        del state, metrics
-        torch.cuda.empty_cache()
+        runs[remat] = dict(loss=float(metrics["loss"]), launches=launches, peak_bytes=peak,
+                           state_bytes=before, step_peak_bytes=peak - before,
+                           grads={n: p.grad.detach().clone()
+                                  for n, p in state.model.named_parameters()},
+                           warm_steps_ms=[], warm_steps_wall_ms=[])
+    # warm steps, the two in turn, so the host's speed drifts alike for both
+    for _ in range(3):
+        for remat in (False, True):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            step(states[remat], pb, max_frames, torch.Generator(device=DEVICE))
+            end.record()
+            torch.cuda.synchronize()
+            runs[remat]["warm_steps_ms"].append(start.elapsed_time(end))
+            runs[remat]["warm_steps_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    for run in runs.values():
+        run["warm_step_ms"] = float(np.median(run["warm_steps_ms"]))
+        run["warm_step_wall_ms"] = float(np.median(run["warm_steps_wall_ms"]))
+    del states
+    torch.cuda.empty_cache()
     plain, remat = runs[False], runs[True]
     largest = max(float(g.abs().max()) for g in plain["grads"].values())
     norm_err, worst, noise = grad_errors(remat["grads"], plain["grads"], largest)
@@ -3022,7 +3031,7 @@ def remat_vs_plain(argv, record) -> dict:
         grad_norm_rel_err=norm_err, worst_grad_rel_err=worst, bn_fed_bias_err_of_largest=noise,
         **{f"{k}_{'remat' if r else 'plain'}": runs[r][k] for r in (False, True)
            for k in ("launches", "peak_bytes", "state_bytes", "step_peak_bytes", "warm_step_ms",
-                     "warm_step_wall_ms")})
+                     "warm_step_wall_ms", "warm_steps_ms")})
     record["remat"] = result
     log(f"remat vs plain {json.dumps(result)}")
     if not result["loss_bitwise"]:
