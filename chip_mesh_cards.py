@@ -18,12 +18,13 @@ card:
      0's log and checkpoints, and serves the model.pt it wrote through
      the greedy path;
   3. fused accumulation windows on the 2x2 NCCL mesh: chip_smoke.py's
-     phase 13 corpus and flags, the CLI's train mode joined by four ranks
-     (one a card) twice with --train.fused_window false (their difference
-     is the margin), then at the flag's default (on: over NCCL each
-     window's graph holds the collectives); the window run's losses and
-     final parameters against the first eager run's, within the margin,
-     as phase 13 holds them on one card, and its captures and replays.
+     phase 13 B=2 corpus (at 42 utterances, 21 microbatches) and flags,
+     the CLI's train mode joined by four ranks (one a card) twice with
+     --train.fused_window false (their difference is the margin), then at
+     the flag's default (on: over NCCL each window's graph holds the
+     collectives); the window run's losses and final parameters against
+     the first eager run's, within the margin, as phase 13 holds them on
+     one card, and its captures and replays.
 It prints the cards' names and power limits, a JSON line of the results
 and {"ok": true, ...} last; a failed check, or fewer than four cards,
 exits non-zero.
@@ -79,7 +80,10 @@ def mesh_windows(root, record) -> dict:
     from emg_tpu_torch.parallel.distributed import launch
 
     croot = os.path.join(root, "window_corpus")
-    argv = chip_smoke.make_window_corpus(croot)
+    # phase 13's B=2 corpus at 42 utterances (21 microbatches: 4
+    # signatures, 3 replayed), where phase 13 takes 18 for its time
+    argv = chip_smoke.make_window_corpus(
+        croot, dict(chip_smoke.WINDOW_CORPUS, sentences_per_session=24))
     t0 = time.perf_counter()
     launch(window_ranks, (argv, croot), 4, "cuda")
     runs = {}

@@ -118,26 +118,35 @@ Phases, in order; any failure exits non-zero:
      encoder layer recomputed in the backward) and without, from the same
      weights, batch and seeds: the loss bitwise, the gradients within phase
      8's bounds, K3 twice a layer (12) and K4, K5 once (6), each one's peak
-     memory and warm step ms; then fused accumulation windows: on a corpus
-     of 42 utterances of one length (two a microbatch, so windows of one
-     composition recur) the CLI's train mode twice with
-     --train.fused_window false and once at its default (on: each window
-     of 2-3 microbatches one CUDA graph, captured once a signature and
-     replayed), the window run's losses and final parameters held to the
-     eager runs' own margin, its captures, replays, capture seconds and
-     pool memory, every run's K3-K5 launches (a replay's counted each
-     replay), each mode's warm ms a microbatch and one replay's idle share
-     (torch.profiler); then the conformer (--model.encoder_kind conformer,
-     phase 12's microbatch) on 1x2 and sequence-sharded 1x2 meshes of two
-     ranks sharing the card (gloo) against the single-rank conformer step,
-     with phase 12's bounds, each rank's warm step ms (host collectives,
-     not a scaling figure): phase 12's ranks take these steps after their
-     CLI epoch (one launch serves both phases), and phase 13 checks what
-     they wrote; no K2-K5 launch there (the conformer's attention is
-     unfused), the CTC kernels do. Phase 7 also records the
-     (B, T, S) its CTC ran at; the CTC kernels (csrc/ctc_loss.cu, in place
-     of F.ctc_loss, whose lengths go through the host) are held against
-     their plain version there and timed beside F.ctc_loss.
+     memory and warm step ms; then fused accumulation windows, in two
+     cases: a corpus of 18 utterances of one length (B=2 at T=256, where
+     the eager step is launch-bound; windows of one composition recur),
+     and phase 7's microbatch shapes (B=32 and B=16 at 384 frames) from
+     54 utterances of mixed lengths, whose windows recur with other
+     members, so a replay runs at other example counts, packed rows and
+     frame lengths than its capture. In each, the CLI's train mode twice
+     with --train.fused_window false and once at its default (on: each
+     window of 2 microbatches one CUDA graph, captured once a signature
+     and replayed), the window run's losses and final parameters held to
+     the eager runs' own margin, its captures, replays, capture seconds,
+     pool memory and each signature's counts; the wrappers' launch counts
+     (a capture launches nothing and a replay calls no wrapper) and the
+     replays' launches, from a torch.profiler trace of the run's replays
+     run again, by kernel name: K3-K5 once a layer and the CTC kernels
+     once a microbatch they hold, and the window run's K3-K5 in all once a
+     layer a microbatch; each mode's warm ms a microbatch and one replay's idle
+     share (torch.profiler); then the conformer (--model.encoder_kind
+     conformer, phase 12's microbatch) on 1x2 and sequence-sharded 1x2
+     meshes of two ranks sharing the card (gloo) against the single-rank
+     conformer step, with phase 12's bounds, each rank's warm step ms
+     (host collectives, not a scaling figure): phase 12's ranks take
+     these steps after their CLI epoch (one launch serves both phases),
+     and phase 13 checks what they wrote; no K2-K5 launch there (the
+     conformer's attention is unfused), the CTC kernels do. Phase 7 also
+     records the (B, T, S) its CTC ran at; the CTC kernels
+     (csrc/ctc_loss.cu, in place of F.ctc_loss, whose lengths go through
+     the host) are held against F.ctc_loss there (the nll, and the
+     gradient after log_softmax) and timed beside it.
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -149,6 +158,7 @@ import argparse
 import copy
 import dataclasses
 import contextlib
+import gc
 import glob
 import json
 import logging
@@ -1578,11 +1588,14 @@ def train_through_cli(argv, root, record):
     return launches, shapes, ctc_shapes
 
 
-def profiled(run):
-    """A torch.profiler trace of one call of run(), and its host wall ms."""
+def profiled(run, device_only: bool = False):
+    """A torch.profiler trace of one call of run(), and its host wall ms;
+    ``device_only`` traces the card alone (no host operators: a shorter
+    trace to read)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([] if device_only else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         profiled_wall = (time.perf_counter() - t0) * 1e3
@@ -2861,21 +2874,40 @@ def multi_device(argv, root, record):
 # mesh) and the CTC kernels
 # ---------------------------------------------------------------------------
 
-# the CTC kernels against their plain version, each output's largest error
-# relative to its largest magnitude. The forward's recursions agree
-# bitwise; the gradient is exp(alpha + beta - lp + nll), where alpha and
-# beta reach several hundred at T = 384 and their last bits differ between
-# the kernel and the plain version's tensor ops (whose sums over classes
-# are atomics): ~1e-4 of the largest gradient (7.7e-5 to 8.4e-5 seen)
+# the CTC kernels against F.ctc_loss (their plain version on the CPU), each
+# output's largest error relative to its largest magnitude: the nll, and the
+# gradient after log_softmax (F.ctc_loss's own is right only there). The
+# gradient is exp(alpha + beta - lp + nll), where alpha and beta reach
+# several hundred at T = 384 and their last bits differ between the two
+# recursions: ~1e-4 of the largest gradient (on the CPU, the same
+# recursion in tensor ops against F.ctc_loss: 1.1e-4 to 2.3e-4)
 CTC_TOL = 5e-4
-# phase 13's corpus: 42 training utterances of one length (2048 raw frames),
-# two a microbatch at max_batch_length 8000 (B=2, T=256), so windows of one
-# composition recur; batch_size_grad 8 and report_loss 2 plan one epoch's
-# 21 microbatches as windows of 2, with and without an apply (4
-# signatures, 3 of them replayed)
+# phase 13's first window corpus: 18 training utterances of one length
+# (2048 raw frames), two a microbatch at max_batch_length 8000 (B=2,
+# T=256), where the eager step is launch-bound; batch_size_grad 8 and
+# report_loss 2 plan one epoch's 9 microbatches as four windows of 2 and
+# one of 1, with and without an apply (2 signatures, each replayed once).
+# Every microbatch holds the same counts. Cut for phase 13's 90 s from 42
+# utterances (21 microbatches), which chip_mesh_cards.py's 2x2 case keeps.
 WINDOW_CORPUS_LEN = 3000
+WINDOW_CORPUS = dict(seed=1, sentences_per_session=12, min_len=WINDOW_CORPUS_LEN,
+                     max_len=WINDOW_CORPUS_LEN + 1)
 WINDOW_ARGS = ["--n_epochs", "1", "--max_batch_length", "8000", "--batch_size_grad", "8",
                "--report_loss", "2", "--per_train_batches", "1"]
+# the second: phase 7's microbatches (B=32 and B=16 at 384 frames, mixed
+# lengths, the reference's max_batch_length and batch_size_grad 100, the
+# flagship's default). Phase 7's 30 utterances fill none of the sampler's
+# buckets, so each of its microbatches holds the same utterances every
+# epoch; these 54 (2400-4200 samples) overflow theirs, so the per-epoch
+# shuffle changes each microbatch's members. report_loss 2 plans 3 epochs
+# of 4 microbatches as windows of 2: 4 signatures, 2 replayed, each replay
+# at other example counts, packed rows and frame lengths than its capture
+# (B=16 at 11 examples, then 15; B=32 and B=16 at 22 and 15 with other
+# lengths), and one window applies. Cut for phase 13's 90 s: a PER report
+# at the first epoch only (report_PER 3)
+MIXED_WINDOW_CORPUS = dict(seed=2, sentences_per_session=30, min_len=2400, max_len=4200)
+MIXED_WINDOW_ARGS = ["--n_epochs", "3", "--max_batch_length", "80000", "--report_loss", "2",
+                     "--report_PER", "3", "--per_train_batches", "1"]
 # the window against the eager path: the eager runs' own margin (K4's
 # d_used atomics, from the first apply on) is one draw of the noise the
 # window's difference is another draw of, so the window is held to 4x it,
@@ -2899,10 +2931,13 @@ def recording_ctc(shapes: set):
 
 
 def check_ctc(shapes, record):
-    """The CTC kernels against their plain version at every (B, T, S) the
-    training run gave them, with random log-probabilities, lengths a row
-    (every alignment feasible) and incoming gradients, timed beside
-    F.ctc_loss. Returns the kernels line's rows: the largest shape."""
+    """The CTC kernels against F.ctc_loss at every (B, T, S) the training
+    run gave them, with random logits, lengths a row (every alignment
+    feasible) and incoming gradients: the nll, and the gradient with
+    respect to the logits (through log_softmax), each timed. F.ctc_loss is
+    both the plain version and the library call: its forward, and its
+    forward and backward (it has no backward alone). Returns the kernels
+    line's rows: the largest shape."""
     import torch.nn.functional as F
 
     from emg_tpu_torch.ops import ctc
@@ -2910,7 +2945,8 @@ def check_ctc(shapes, record):
     rows = []
     for B, T, S in sorted(shapes):
         g = torch.Generator(device=DEVICE).manual_seed(B * 1000 + T)
-        lp = torch.randn(B, T, 44, generator=g, device=DEVICE).log_softmax(-1)
+        x = torch.randn(B, T, 44, generator=g, device=DEVICE)
+        lp = x.log_softmax(-1)
         il = torch.randint(T // 2, T + 1, (B,), generator=g, device=DEVICE)
         il[0] = T
         tl = torch.minimum(torch.randint(1, S + 1, (B,), generator=g, device=DEVICE),
@@ -2921,45 +2957,46 @@ def check_ctc(shapes, record):
         args = (lp, targets, il, tl)
         nll, alpha = ctc.ctc_forward(*args)
         grad = ctc.ctc_backward(*args, alpha, nll, gnll)
-        pnll, palpha = ctc.ctc_forward_plain(*args)
-        pgrad = ctc.ctc_backward_plain(*args, palpha, pnll, gnll)
+        # the kernels' gradient through log_softmax's backward
+        gx = grad - lp.exp() * grad.sum(-1, keepdim=True)
+        leaf = x.clone().requires_grad_()
+
+        def library_fwd():
+            return F.ctc_loss(lp.transpose(0, 1), targets, il, tl, blank=43, reduction="none")
+
+        def library_fwd_bwd():
+            out = F.ctc_loss(leaf.log_softmax(-1).transpose(0, 1), targets, il, tl, blank=43,
+                             reduction="none")
+            return out, torch.autograd.grad((out * gnll).sum(), leaf)[0]
+
+        fnll, fgx = library_fwd_bwd()
         torch.cuda.synchronize()
-        fwd_err = float((nll - pnll).abs().max())
-        bwd_err = float((grad - pgrad).abs().max())
+        fwd_err = float((nll - fnll).abs().max())
+        bwd_err = float((gx - fgx).abs().max())
         # the work this data needs: each row's T_b x (2 L_b + 1) states
         states = float((il * (2 * tl + 1)).sum())
         fwd_bound = bound(4 * (2 * states + B), 12 * states, F32_CUDA_CORE_FLOPS)
         bwd_bound = bound(4 * (3 * states + B * T * 44), 15 * states, F32_CUDA_CORE_FLOPS)
-        lp_t = lp.transpose(0, 1)
-        leaf = lp.detach().requires_grad_()
-
-        def library_fwd_bwd():
-            out = F.ctc_loss(leaf.transpose(0, 1), targets, il, tl, blank=43, reduction="none")
-            return torch.autograd.grad((out * gnll).sum(), leaf)
-
+        fwd_library_ms = time_ms(library_fwd)
+        fwd_bwd_library_ms = time_ms(library_fwd_bwd)
         row = dict(
-            B=B, T=T, S=S, nll_rel_err=fwd_err / float(pnll.abs().max()),
-            grad_rel_err=bwd_err / float(pgrad.abs().max()),
+            B=B, T=T, S=S, nll_rel_err=fwd_err / float(fnll.abs().max()),
+            grad_rel_err=bwd_err / float(fgx.abs().max()),
             ctc_forward=dict(
                 max_abs_err=fwd_err, ms=time_ms(lambda: ctc.ctc_forward(*args)),
-                plain_ms=time_ms(lambda: ctc.ctc_forward_plain(*args), iters=2, warmup=1),
-                library_ms=time_ms(lambda: F.ctc_loss(lp_t, targets, il, tl, blank=43,
-                                                      reduction="none")),
+                plain_ms=fwd_library_ms, library_ms=fwd_library_ms,
                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
             ctc_backward=dict(
                 max_abs_err=bwd_err,
                 ms=time_ms(lambda: ctc.ctc_backward(*args, alpha, nll, gnll)),
-                plain_ms=time_ms(lambda: ctc.ctc_backward_plain(*args, palpha, pnll, gnll),
-                                 iters=2, warmup=1),
-                # F.ctc_loss has no backward alone: its forward and backward
-                library_ms=time_ms(library_fwd_bwd),
+                plain_ms=fwd_bwd_library_ms, library_ms=fwd_bwd_library_ms,
                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1]))
         rows.append(row)
-        log(f"CTC kernels vs plain {json.dumps(row)}")
+        log(f"CTC kernels vs F.ctc_loss {json.dumps(row)}")
     record["ctc_launched"] = rows
     failed = [r for r in rows if not (r["nll_rel_err"] <= CTC_TOL and r["grad_rel_err"] <= CTC_TOL)]
     if failed:
-        raise AssertionError(f"the CTC kernels differ from their plain version: {failed}")
+        raise AssertionError(f"the CTC kernels differ from F.ctc_loss: {failed}")
     rep = max(rows, key=lambda r: r["B"] * r["T"] * r["S"])
     return {name: dict(rep[name], B=rep["B"], T=rep["T"], S=rep["S"])
             for name in ("ctc_forward", "ctc_backward")}
@@ -3047,14 +3084,17 @@ def remat_vs_plain(argv, record) -> dict:
     return result
 
 
-def make_window_corpus(root: str):
+def make_window_corpus(root: str, corpus=None):
+    """A training corpus of ``corpus``'s draw (WINDOW_CORPUS by default:
+    ``make_reference_scale_corpus``'s arguments over one session with 2
+    dev, 2 test and 2 nonparallel utterances) and its normalizers; returns
+    its CLI flags."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.data.dataset import make_normalizers
     from emg_tpu_torch.data.fixtures import make_reference_scale_corpus
 
     paths = make_reference_scale_corpus(
-        root, seed=1, n_sessions=1, sentences_per_session=24, n_dev=2, n_test=2,
-        n_nonparallel=2, min_len=WINDOW_CORPUS_LEN, max_len=WINDOW_CORPUS_LEN + 1)
+        root, n_sessions=1, n_dev=2, n_test=2, n_nonparallel=2, **(corpus or WINDOW_CORPUS))
     argv = ["--silent_data_directories", paths["silent_data_directories"],
             "--voiced_data_directories", paths["voiced_data_directories"],
             "--testset_file", paths["testset_file"], "--dict", paths["dict"],
@@ -3094,28 +3134,102 @@ def run_difference(a: dict, b: dict) -> dict:
                 worst_param=worst[0], worst_param_name=worst[1])
 
 
-def window_profile(trainer, state) -> dict:
+def recording_windows(sink: dict):
+    """Patch the window runner to keep, for each signature it ran (its key
+    in ``runner.graphs``), each window's counts in order (capture first,
+    then each replay: a microbatch's real examples, packed rows and summed
+    frame lengths) and the last window's host batches; the run itself is
+    unchanged."""
+    from emg_tpu_torch.train.window import WindowRunner
+
+    real = WindowRunner.run
+
+    def run(self, state, group):
+        before = {key: c.replays for key, c in self.graphs.items()}
+        out = real(self, state, group)
+        for key, c in self.graphs.items():
+            if before.get(key, -1) != c.replays:
+                entry = sink.setdefault(key, {"counts": []})
+                entry["counts"].append(tuple(
+                    (int(pb.n_examples), int(pb.n_rows), int(np.sum(pb.lengths)))
+                    for pb, _ in group))
+                entry["group"] = list(group)
+        return out
+    return mock.patch.object(WindowRunner, "run", run)
+
+
+# kernel names in a trace and the wrapper that launches each; K2 and K3
+# share flash_fwd_kernel, whose second template argument (kTrain) is true
+# for K3
+TRACE_KERNELS = (("flash_bwd_dkv_kernel", "flash_train_bwd_dkv"),
+                 ("flash_bwd_dq_kernel", "flash_train_bwd_dq"), ("ctc_alpha_kernel", "ctc_forward"),
+                 ("ctc_beta_kernel", "ctc_backward"), ("iir_scan_kernel", "iir_scan"))
+FWD_KERNEL_TRAIN = re.compile(r"flash_fwd_kernel(?:<[^,]+, (true|false)|I\w{1,24}?Lb([01])E)")
+
+
+def trace_launches(prof) -> dict:
+    """The launches of each kernel wrapper's kernels in a torch.profiler
+    trace, counted by kernel name (one for each kernel that a wrapper call
+    launches; ctc_backward's beta kernel stands for its two)."""
+    from torch.autograd import DeviceType
+
+    counts = dict.fromkeys(kernel_counters(), 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "flash_fwd_kernel" in e.name:
+            m = FWD_KERNEL_TRAIN.search(e.name)
+            if m is None:
+                raise AssertionError(f"cannot tell K2 from K3 in the trace's name {e.name}")
+            counts["flash_train_fwd" if "true" in m.groups() or "1" in m.groups()
+                   else "flash_attention_relpos"] += 1
+            continue
+        for kernel, name in TRACE_KERNELS:
+            if kernel in e.name:
+                counts[name] += 1
+    return counts
+
+
+def replay_launches(runner) -> dict:
+    """The run's replays again, under torch.profiler, on the state the run
+    left: each window graph replayed as many times as the run replayed it,
+    in one trace; their kernels' launches (``trace_launches``)."""
+    def replays():
+        for captured in runner.graphs.values():
+            for _ in range(captured.replays):
+                captured.graph.replay()
+        torch.cuda.synchronize()
+
+    prof, _ = profiled(replays, device_only=True)
+    return trace_launches(prof)
+
+
+def window_profile(trainer, state, windows: dict) -> dict:
     """After the window run, on the state it left: the window graph
-    replayed most, replayed again, against its last window's microbatches
-    as per-microbatch steps (``trainer.train_step``, the eager path), each
-    a microbatch's wall ms (median of three synchronized passes) and, from
-    a torch.profiler trace of one more pass each, the card's busy ms and
-    idle share (of the unprofiled wall, and of the trace's device span)."""
-    captured = max(trainer.windows.graphs.values(), key=lambda c: c.replays)
-    group = captured.last_group
+    replayed most (of those, the one of most packed rows), replayed again,
+    against its last window's microbatches (``recording_windows``) as
+    per-microbatch steps (``trainer.train_step``, the eager path), each a
+    microbatch's wall ms (median of three synchronized passes) and, from a
+    torch.profiler trace of one more pass each, the card's busy ms and idle
+    share (of the unprofiled wall, and of the trace's device span)."""
+    key, captured = max(trainer.windows.graphs.items(),
+                        key=lambda kv: (kv[1].replays, sum(s[0][0] for s in kv[0])))
+    group = windows[key]["group"]
     n = len(group)
 
     def eager():
         for pb, max_frames in group:
             trainer.train_step(state, pb, max_frames, trainer.generator)
 
-    result = {"microbatches": n}
+    result = {"microbatches": n, "examples": [int(pb.n_examples) for pb, _ in group],
+              "max_frames": [max_frames for _, max_frames in group]}
     for name, run in (("replay", captured.graph.replay), ("eager", eager)):
         run()
         walls = [timed_sync(run)[1] for _ in range(3)]
         wall = float(np.median(walls))
         row = dict(wall_ms_a_microbatch=wall / n, walls_ms=walls)
-        prof, profiled_wall = profiled(lambda: (run(), torch.cuda.synchronize()))
+        prof, profiled_wall = profiled(lambda: (run(), torch.cuda.synchronize()),
+                                       device_only=True)
         try:
             by_name, span, kernels = device_work(prof, f"a window's {name}")
         except AssertionError as e:  # the trace saw no device work
@@ -3129,80 +3243,122 @@ def window_profile(trainer, state) -> dict:
     return result
 
 
-def fused_windows(root, record) -> dict:
-    """The CLI's train mode on phase 13's corpus three times: twice with
+def window_case(root, name: str, corpus, args) -> dict:
+    """The CLI's train mode on a window corpus three times: twice with
     --train.fused_window false (their difference is the margin), then with
     the flag at its default (auto: on, on the card). The window run's
     losses and final parameters against the first eager run's, within the
-    margin; its captures, replays, capture seconds and pool memory; every
-    run's K3-K5 launches (a replay's counted at each replay); each run's
-    train loop ms a microbatch (the epoch less its evaluation passes and
-    PER report: batch assembly, captures and steps); then, on the state the
-    window run left, a window's microbatches replayed and as eager steps
-    (``window_profile``)."""
+    margin; its captures, replays, capture seconds and pool memory, and
+    each signature's counts; each run's kernel launches: the wrappers'
+    counts (eager steps and evaluation passes; a capture launches nothing)
+    and, for the window run, its replays' launches, from a trace of the
+    same replays run again (``replay_launches``); each run's train loop ms
+    a microbatch (the epochs less their evaluation passes and PER reports:
+    batch assembly, captures and steps); then, on the state the window run
+    left, a window's microbatches replayed and as eager steps
+    (``window_profile``); the seconds of the corpus, the trace and the
+    profile. Fails unless the replays launch K3-K5 once a layer and the
+    CTC kernels once for each microbatch they hold, the window run's K3-K5
+    launches in all come to a layer's each microbatch, and the window run
+    holds to the margin."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
-    croot = os.path.join(root, "window_corpus")
-    argv = make_window_corpus(croot)
+    t0 = time.perf_counter()
+    croot = os.path.join(root, name)
+    argv = make_window_corpus(croot, corpus)
+    parts_s = dict(corpus=time.perf_counter() - t0)
     counters = kernel_counters()
-    runs, states = {}, []
+    runs, states, windows = {}, [], {}
     real_train = Trainer.train
 
     def keeping_state(self, *args, **kwargs):
         states.append(real_train(self, *args, **kwargs))
         return states[-1]
 
-    for name, flags in (("eager_a", ["--train.fused_window", "false"]),
-                        ("eager_b", ["--train.fused_window", "false"]), ("window", [])):
+    for run, flags in (("eager_a", ["--train.fused_window", "false"]),
+                       ("eager_b", ["--train.fused_window", "false"]), ("window", [])):
         for fn in counters.values():
             fn.launches = 0
         eval_s, per_s = [], []
         t0 = time.perf_counter()
         with timed_method(Trainer, "evaluation_loop", eval_s), \
                 timed_method(Trainer, "report_PER", per_s), \
-                mock.patch.object(Trainer, "train", keeping_state):
-            trainer = cli.main(argv + WINDOW_ARGS + flags + [
-                "--device", DEVICE, "--output_directory", os.path.join(croot, name)])
+                mock.patch.object(Trainer, "train", keeping_state), \
+                recording_windows(windows if run == "window" else {}):
+            trainer = cli.main(argv + args + flags + [
+                "--device", DEVICE, "--output_directory", os.path.join(croot, run)])
         torch.cuda.synchronize()
         logging.getLogger().handlers.clear()
         st = run_state(trainer.ckpt.directory, trainer.train_losses)
         loop = sum(trainer.epoch_seconds) - sum(s for _, s in eval_s + per_s)
-        runs[name] = dict(state=st, trainer=trainer, wall_s=time.perf_counter() - t0,
-                          launches={k: fn.launches for k, fn in counters.items()},
-                          epoch_seconds=trainer.epoch_seconds,
-                          loop_ms_a_microbatch=loop / st["microbatches"] * 1e3)
+        runs[run] = dict(state=st, trainer=trainer if run == "window" else None,
+                         wall_s=time.perf_counter() - t0,
+                         launches={k: fn.launches for k, fn in counters.items()},
+                         epoch_seconds=trainer.epoch_seconds,
+                         loop_ms_a_microbatch=loop / st["microbatches"] * 1e3)
     margin = run_difference(runs["eager_b"]["state"], runs["eager_a"]["state"])
     window = run_difference(runs["window"]["state"], runs["eager_a"]["state"])
-    runner = runs["window"]["trainer"].windows
-    layers = runs["window"]["trainer"].config.model.num_layers_encoder
+    trainer = runs["window"]["trainer"]
+    runner = trainer.windows
+    layers = trainer.config.model.num_layers_encoder
+    t0 = time.perf_counter()
+    in_replays = replay_launches(runner)
+    parts_s["replay_trace"] = time.perf_counter() - t0
     graphs = [dict(microbatches=len(c.inputs), replays=c.replays, capture_s=c.capture_s,
-                   pool_bytes=c.pool_bytes,
-                   launches_a_replay={fn.__name__: n for fn, n in c.launches.items() if n})
-              for c in runner.graphs.values()]
+                   pool_bytes=c.pool_bytes, shapes=[list(s[:4]) for s in key],
+                   applies=key[-1][-1], counts=windows[key]["counts"])
+              for key, c in runner.graphs.items()]
+    n = runs["window"]["state"]["microbatches"]
+    t0 = time.perf_counter()
+    profile = window_profile(trainer, states[-1], windows)
+    parts_s["profile"] = time.perf_counter() - t0
     result = dict(
-        microbatches=runs["window"]["state"]["microbatches"],
-        updates=runs["window"]["state"]["updates"], margin=margin, window_vs_eager=window,
-        captures=runner.captures, replays=runner.replays, graphs=graphs,
-        launches={k: r["launches"] for k, r in runs.items()},
+        microbatches=n, updates=runs["window"]["state"]["updates"], margin=margin,
+        window_vs_eager=window, captures=runner.captures, replays=runner.replays, graphs=graphs,
+        launches={k: r["launches"] for k, r in runs.items()}, launches_in_replays=in_replays,
         loop_ms_a_microbatch={k: r["loop_ms_a_microbatch"] for k, r in runs.items()},
         cli_wall_s={k: r["wall_s"] for k, r in runs.items()},
-        replay_vs_eager=window_profile(runs["window"]["trainer"], states[-1]))
-    record["fused_windows"] = result
-    log(f"fused windows {json.dumps(result, default=str)}")
-    replayed = [g for g in graphs if g["replays"] > 0]
-    if len(replayed) < 2 or max(g["microbatches"] for g in replayed) < 2:
-        raise AssertionError(f"fewer than two window signatures were replayed: {graphs}")
-    n = result["microbatches"]
-    for name, r in runs.items():
-        got = {k: r["launches"][k] for k in ("flash_train_fwd", "flash_train_bwd_dq",
-                                              "flash_train_bwd_dkv")}
+        epoch_seconds={k: r["epoch_seconds"] for k, r in runs.items()}, parts_s=parts_s,
+        replay_vs_eager=profile)
+    log(f"fused windows, {name} {json.dumps(result, default=str)}")
+    k345 = ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv")
+    replayed = sum(g["replays"] * g["microbatches"] for g in graphs)
+    want = dict({k: layers * replayed for k in k345}, ctc_forward=replayed,
+                ctc_backward=replayed)
+    got = {k: in_replays[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: the replays launched {got}, not {want}")
+    for run, r in runs.items():
+        got = {k: r["launches"][k] + (in_replays[k] if run == "window" else 0) for k in k345}
         if any(v != layers * n for v in got.values()):
-            raise AssertionError(f"{name}: K3-K5 launched {got}, not {layers} a microbatch")
-    if runs["window"]["state"]["microbatches"] != runs["eager_a"]["state"]["microbatches"]:
-        raise AssertionError("the window run trained another number of microbatches")
+            raise AssertionError(f"{name}, {run}: K3-K5 launched {got}, not {layers} a microbatch")
+    if n != runs["eager_a"]["state"]["microbatches"]:
+        raise AssertionError(f"{name}: the window run trained another number of microbatches")
     check_window_margin(window, margin)
     return result
+
+
+def fused_windows(root, record) -> dict:
+    """Phase 13's two window cases (``window_case``): B=2 at T=256
+    (WINDOW_CORPUS), where windows of two signatures or more must replay;
+    then phase 7's microbatch shapes at mixed lengths (MIXED_WINDOW_CORPUS),
+    where a replay must run at other counts than its capture's."""
+    small = record["fused_windows"] = window_case(root, "window_corpus", WINDOW_CORPUS,
+                                                  WINDOW_ARGS)
+    replayed = [g for g in small["graphs"] if g["replays"] > 0]
+    if len(replayed) < 2 or max(g["microbatches"] for g in replayed) < 2:
+        raise AssertionError(f"fewer than two window signatures were replayed: {small['graphs']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed = record["fused_windows_mixed"] = window_case(root, "mixed_window_corpus",
+                                                        MIXED_WINDOW_CORPUS, MIXED_WINDOW_ARGS)
+    if not any(g["replays"] > 0 and len(set(g["counts"])) > 1 for g in mixed["graphs"]):
+        raise AssertionError(f"no window graph replayed at other counts than its capture's: "
+                             f"{mixed['graphs']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(small=small, mixed=mixed)
 
 
 def check_window_margin(window: dict, margin: dict) -> None:
@@ -3268,8 +3424,9 @@ def training_extras(argv, root, record):
                                      "grad_norm_rel_err", "launches_remat", "peak_bytes_plain",
                                      "peak_bytes_remat", "warm_step_ms_plain",
                                      "warm_step_ms_remat")},
-        fused_windows={k: windows[k] for k in ("margin", "window_vs_eager", "captures", "replays",
-                                               "loop_ms_a_microbatch", "replay_vs_eager")},
+        fused_windows={case: {k: w[k] for k in (
+            "margin", "window_vs_eager", "captures", "replays", "launches_in_replays",
+            "loop_ms_a_microbatch", "replay_vs_eager")} for case, w in windows.items()},
         conformer_mesh={name: dict(loss_rel_err=g["ranks"][0]["loss_rel_err"],
                                    grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
                                    warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],

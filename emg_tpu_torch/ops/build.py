@@ -161,3 +161,15 @@ def current_stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` for the kernel it launched just now.
+    Under CUDA graph capture the call records the kernel into the graph and
+    launches nothing, so it is not counted; a replay of the graph launches
+    the kernel without calling the wrapper, so the count never sees it (a
+    profiler trace of the replay does)."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

@@ -1,5 +1,4 @@
-"""CTC loss with the reference's reduction: CUDA kernels, plain version,
-wrapper.
+"""CTC loss with the reference's reduction: CUDA kernels, wrapper.
 
 Counterpart of ``emg_tpu/ops/ctc.py``. The reference computes
 F.ctc_loss(log_probs, targets, input_lengths, target_lengths, blank=43)
@@ -13,111 +12,29 @@ reach the gradient. ``n_examples`` may be a host int or a 0-dim device
 tensor; nothing here reads the device from the host, so a CUDA graph can
 hold the whole loss.
 
-``ctc_nll`` is the forward-backward recursion of ``csrc/ctc_loss.cu`` on a
-CUDA tensor (``ctc_forward`` and ``ctc_backward``, which read the lengths
-from device memory: PyTorch's F.ctc_loss copies them to the host) and the
-plain version below, the same recursions in tensor code, on a CPU tensor.
-The gradient is the true gradient with respect to the log-probabilities;
-after log_softmax's backward it is PyTorch's.
+``ctc_nll`` runs the forward-backward recursion of ``csrc/ctc_loss.cu`` on
+a CUDA tensor (``ctc_forward`` and ``ctc_backward``, which read the lengths
+from device memory: F.ctc_loss copies them to the host, which no graph can
+hold) and F.ctc_loss, its plain version, on a CPU tensor. The kernels'
+gradient is the true gradient with respect to the log-probabilities;
+F.ctc_loss returns one that is right only after log_softmax's backward, and
+there the two agree.
 
 An alignment that cannot exist (more labels than frames allow) gives
-``inf`` here, as in the reference, and no gradient; the JAX package's
-optax CTC gives a large finite value instead.
+``inf`` here, as in the reference; the kernels give such a row no
+gradient, where F.ctc_loss gives it NaN. The JAX package's optax CTC gives
+a large finite value instead.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from emg_tpu_torch.ops import build
 from emg_tpu_torch.text.phonemes import BLANK_ID
 
-NEG_INF = float("-inf")
 MAX_LABELS = 511  # 2 * S + 1 states must fit one 1024-thread block
-
-
-def _lse3(a, b, c):
-    """log(e^a + e^b + e^c) in float32, -inf where all three are -inf (the
-    kernels' lse3)."""
-    m = torch.maximum(a, torch.maximum(b, c))
-    safe = torch.where(m == NEG_INF, 0.0, m)
-    return safe + torch.log(torch.exp(a - safe) + torch.exp(b - safe) + torch.exp(c - safe))
-
-
-def _shift(x, k):
-    """x (B, Sp) moved right by k states (k < 0: left), -inf filled."""
-    fill = torch.full_like(x[:, : abs(k)], NEG_INF)
-    return torch.cat([fill, x[:, :-k]], 1) if k > 0 else torch.cat([x[:, -k:], fill], 1)
-
-
-def _labels(targets, target_lengths, blank):
-    """The extended labels (B, Sp), each state's skip flag, the valid-state
-    mask (s < 2L + 1) and L."""
-    B, S = targets.shape
-    s = torch.arange(2 * S + 1, device=targets.device)
-    lab = torch.where(s % 2 == 1, targets[:, (s // 2).clamp(max=S - 1)], blank)
-    skip = (s % 2 == 1) & (s >= 3) & (lab != _shift_int(lab))
-    L = target_lengths.clamp(0, S)
-    valid = s[None, :] < (2 * L + 1)[:, None]
-    return lab, skip, valid, L
-
-
-def _shift_int(lab):
-    return torch.cat([torch.full_like(lab[:, :2], -1), lab[:, :-2]], 1)
-
-
-def ctc_forward_plain(lp, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
-    """Plain version of the forward kernel: (nll (B,), alpha (B, T, 2S+1)),
-    float32, alpha valid at t < T_b."""
-    B, T, C = lp.shape
-    lab, skip, valid, L = _labels(targets, target_lengths, blank)
-    Tb = input_lengths.clamp(0, T)
-    em = lp.gather(2, lab[:, None, :].expand(B, T, lab.shape[1]))
-    s = torch.arange(lab.shape[1], device=lp.device)
-    a = torch.where(valid & (s < 2), em[:, 0], NEG_INF)
-    alphas = [a]
-    for t in range(1, T):
-        new = _lse3(a, _shift(a, 1), torch.where(skip, _shift(a, 2), NEG_INF)) + em[:, t]
-        new = torch.where(valid, new, NEG_INF)
-        alphas.append(new)
-        a = torch.where((t < Tb)[:, None], new, a)  # a row past its frames keeps its last
-    alpha = torch.stack(alphas, 1)
-    Sb = 2 * L + 1
-    last = a.gather(1, torch.stack([Sb - 1, (Sb - 2).clamp(min=0)], 1))
-    ll = torch.where(L > 0, _lse3(last[:, 0], last[:, 1], torch.full_like(last[:, 0], NEG_INF)),
-                     last[:, 0])
-    ll = torch.where(Tb == 0, torch.where(L == 0, 0.0, NEG_INF), ll)
-    return -ll, alpha
-
-
-def ctc_backward_plain(lp, targets, input_lengths, target_lengths, alpha, nll, grad_nll,
-                       blank: int = BLANK_ID):
-    """Plain version of the backward kernels: d(sum_b grad_nll[b] nll[b]) /
-    d lp, (B, T, C) float32; zero at t >= T_b and for rows whose nll is not
-    finite."""
-    B, T, C = lp.shape
-    lab, skip, valid, L = _labels(targets, target_lengths, blank)
-    Tb = input_lengths.clamp(0, T)
-    em = lp.gather(2, lab[:, None, :].expand(B, T, lab.shape[1]))
-    s = torch.arange(lab.shape[1], device=lp.device)
-    Sb = (2 * L + 1)[:, None]
-    skip_next = _shift(skip.float(), -2) > 0  # skip(s + 2)
-    bnext = torch.full_like(em[:, 0], NEG_INF)
-    betas = [None] * T
-    for t in range(T - 1, -1, -1):
-        init = torch.where(valid & (s >= Sb - 2), em[:, t], NEG_INF)
-        rec = _lse3(bnext, _shift(bnext, -1), torch.where(skip_next, _shift(bnext, -2), NEG_INF))
-        rec = torch.where(valid, rec + em[:, t], NEG_INF)
-        b_t = torch.where((t == Tb - 1)[:, None], init,
-                          torch.where((t < Tb - 1)[:, None], rec, NEG_INF))
-        betas[t] = b_t
-        bnext = b_t
-    beta = torch.stack(betas, 1)
-    live = (torch.arange(T, device=lp.device)[None, :, None] < Tb[:, None, None]) & valid[:, None, :]
-    live = live & torch.isfinite(nll)[:, None, None]
-    w = torch.where(live, torch.exp(alpha + beta - em + nll[:, None, None]), 0.0)
-    grad = torch.zeros_like(lp).scatter_add_(2, lab[:, None, :].expand_as(w), w)
-    return -grad_nll.to(grad.dtype)[:, None, None] * grad
 
 
 def _check(lp, targets, input_lengths, target_lengths, blank):
@@ -135,17 +52,15 @@ def _check(lp, targets, input_lengths, target_lengths, blank):
 
 def _cuda_args(lp, targets, input_lengths, target_lengths):
     if lp.device.type != "cuda":
-        raise ValueError(f"ctc runs on cuda or cpu, not {lp.device}")
+        raise ValueError(f"the ctc kernels run on cuda, not {lp.device}")
     return (lp.float().contiguous(), targets.to(torch.int64).contiguous(),
             input_lengths.to(torch.int64).contiguous(), target_lengths.to(torch.int64).contiguous())
 
 
 def ctc_forward(lp, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
-    """(nll (B,), alpha (B, T, 2S+1)), float32. A CPU tensor takes the plain
-    version; a CUDA tensor launches ``ctc_alpha_kernel`` or raises."""
+    """(nll (B,), alpha (B, T, 2S+1)), float32: launches
+    ``ctc_alpha_kernel`` on CUDA tensors or raises."""
     _check(lp, targets, input_lengths, target_lengths, blank)
-    if lp.device.type == "cpu":
-        return ctc_forward_plain(lp.float(), targets, input_lengths, target_lengths, blank)
     lp, targets, il, tl = _cuda_args(lp, targets, input_lengths, target_lengths)
     B, T, C = lp.shape
     S = targets.shape[1]
@@ -155,19 +70,16 @@ def ctc_forward(lp, targets, input_lengths, target_lengths, blank: int = BLANK_I
         lp.data_ptr(), targets.data_ptr(), il.data_ptr(), tl.data_ptr(), alpha.data_ptr(),
         nll.data_ptr(), B, T, C, S, blank, build.current_stream_ptr(lp.device))
     build.check("ctc_loss", code)
-    ctc_forward.launches += 1
+    build.count_launch(ctc_forward)
     return nll, alpha
 
 
 def ctc_backward(lp, targets, input_lengths, target_lengths, alpha, nll, grad_nll,
                  blank: int = BLANK_ID):
-    """d(sum_b grad_nll[b] nll[b]) / d lp, (B, T, C) float32. A CPU tensor
-    takes the plain version; a CUDA tensor launches ``ctc_beta_kernel`` and
-    ``ctc_grad_kernel`` or raises."""
+    """d(sum_b grad_nll[b] nll[b]) / d lp, (B, T, C) float32, zero at
+    t >= T_b and for rows whose nll is not finite: launches
+    ``ctc_beta_kernel`` and ``ctc_grad_kernel`` on CUDA tensors or raises."""
     _check(lp, targets, input_lengths, target_lengths, blank)
-    if lp.device.type == "cpu":
-        return ctc_backward_plain(lp.float(), targets, input_lengths, target_lengths, alpha, nll,
-                                  grad_nll, blank)
     lp, targets, il, tl = _cuda_args(lp, targets, input_lengths, target_lengths)
     B, T, C = lp.shape
     S = targets.shape[1]
@@ -179,7 +91,7 @@ def ctc_backward(lp, targets, input_lengths, target_lengths, alpha, nll, grad_nl
         nll.data_ptr(), g.data_ptr(), beta.data_ptr(), grad.data_ptr(), B, T, C, S, blank,
         build.current_stream_ptr(lp.device))
     build.check("ctc_loss", code)
-    ctc_backward.launches += 1
+    build.count_launch(ctc_backward)
     return grad
 
 
@@ -207,7 +119,11 @@ class CTCNLL(torch.autograd.Function):
 
 def ctc_nll(log_probs, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
     """(B,) negative log-likelihoods of ``targets`` under ``log_probs``
-    (B, T, C), batch first; ``inf`` where no alignment exists."""
+    (B, T, C), batch first; ``inf`` where no alignment exists. A CPU tensor
+    takes F.ctc_loss; a CUDA tensor the kernels (``CTCNLL``)."""
+    if log_probs.device.type == "cpu":
+        return F.ctc_loss(log_probs.transpose(0, 1), targets, input_lengths, target_lengths,
+                          blank=blank, reduction="none")
     return CTCNLL.apply(log_probs, targets, input_lengths, target_lengths, blank)
 
 

@@ -126,7 +126,7 @@ def flash_attention_relpos(q, k, v, used, oob, key_pad):
         build.current_stream_ptr(device),
     )
     build.check("flash_attention_relpos", code)
-    flash_attention_relpos.launches += 1
+    build.count_launch(flash_attention_relpos)
     return out
 
 
@@ -320,7 +320,7 @@ def flash_train_fwd(q, k, v, used, oob, key_pad, rate: float, seed, b_off: int =
               B, H, T, Dh, keep_threshold(rate), 1.0 - rate, b_off, h_off,
               build.current_stream_ptr(q.device))
     build.check("flash_attention_relpos_train", code)
-    flash_train_fwd.launches += 1
+    build.count_launch(flash_train_fwd)
     return o, lse
 
 
@@ -360,7 +360,7 @@ def flash_train_bwd_dq(q, k, v, used, oob, key_pad, dout, lse, delta, rate: floa
     dused = torch.zeros((H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dq", q, k, v, used, oob, key_pad, dout, lse, delta,
                       rate, seed, b_off, h_off, dq, dused)
-    flash_train_bwd_dq.launches += 1
+    build.count_launch(flash_train_bwd_dq)
     return out
 
 
@@ -379,7 +379,7 @@ def flash_train_bwd_dkv(q, k, v, used, oob, key_pad, dout, lse, delta, rate: flo
     dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     out = _launch_bwd("flash_train_bwd_dkv", q, k, v, used, oob, key_pad, dout, lse, delta,
                       rate, seed, b_off, h_off, dk, dv)
-    flash_train_bwd_dkv.launches += 1
+    build.count_launch(flash_train_bwd_dkv)
     return out
 
 

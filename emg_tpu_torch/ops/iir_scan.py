@@ -135,7 +135,7 @@ def iir_scan(lam_r, lam_i, u_r, u_i, w0_r, w0_i, reverse: bool = False):
         R, T, S, L, n, smem_bytes, int(reverse), build.current_stream_ptr(device),
     )
     build.check("iir_scan", code)
-    iir_scan.launches += 1
+    build.count_launch(iir_scan)
     return w_r, w_i
 
 

@@ -32,9 +32,9 @@ its one generator; each is registered with the graph, so a replay draws
 from the seed set before it), the same counters. Nothing in the body reads
 the device from the host (``microbatch_body``), and the graph's kernels
 launch on the capturing stream (``ops/build.py::current_stream_ptr`` is
-the current stream). A kernel wrapper counts its launches where it is
-called; a capture calls the wrappers without launching anything, so the
-runner takes those counts back and adds them again at each replay.
+the current stream). A kernel wrapper counts only the launches it makes
+(``ops/build.py::count_launch``): not its calls under capture, and not a
+replay's launches, which no wrapper sees.
 
 ``train.fused_window``: None (auto) turns windows on for a CUDA device and
 off for the CPU, as JAX's auto does for accelerators and CPU backends. On
@@ -107,36 +107,23 @@ def windows_enabled(cfg, device: torch.device, mesh=None) -> bool:
     return bool(fw)
 
 
-def kernel_wrappers():
-    """Every kernel wrapper that a training step can call, each with its
-    ``launches`` count."""
-    from emg_tpu_torch.ops import ctc, flash_attention as fa
-    from emg_tpu_torch.ops.iir_scan import iir_scan
-
-    return (iir_scan, fa.flash_attention_relpos, fa.flash_train_fwd, fa.flash_train_bwd_dq,
-            fa.flash_train_bwd_dkv, ctc.ctc_forward, ctc.ctc_backward)
-
-
 @dataclass
 class CapturedWindow:
     """One signature's graph: its input buffers (the staged tensors and
     host facts of each position), each position's generator and
     scheduled-sampling probability, its outputs (each position's loss
-    metrics), the kernel launches one replay makes, the seconds the first
-    window took (its eager run and the capture), the device memory the
-    capture reserved for the runner's pool, its replays so far and the
-    last window's host batches ([(PackedBatch, max_frames)])."""
+    metrics), the seconds the first window took (its eager run and the
+    capture), the device memory the capture reserved for the runner's pool
+    and its replays so far."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: List[Tuple[Dict[str, torch.Tensor], Dict[str, object]]]
     generators: List[torch.Generator]
     ss_probs: List[Optional[torch.Tensor]]
     outputs: List[Dict[str, torch.Tensor]]
-    launches: Dict[object, int]
     capture_s: float
     pool_bytes: int
     replays: int = 0
-    last_group: Optional[list] = None  # the host batches of the last window run
 
 
 def signature(group, plans: Sequence[Schedule]) -> tuple:
@@ -261,8 +248,6 @@ class WindowRunner:
             after = (state.accum_examples, state.microbatches, state.updates)
             side.synchronize()
             reserved = torch.cuda.memory_reserved(self.device)
-            wrappers = kernel_wrappers()
-            launched = [fn.launches for fn in wrappers]
             # the capture records the same steps from the same counters
             state.accum_examples, state.microbatches, state.updates = counters
             graph = torch.cuda.CUDAGraph()
@@ -275,9 +260,6 @@ class WindowRunner:
             finally:
                 graph.capture_end()
                 state.accum_examples, state.microbatches, state.updates = after
-                per_replay = {fn: fn.launches - n for fn, n in zip(wrappers, launched)}
-                for fn, n in zip(wrappers, launched):
-                    fn.launches = n
         torch.cuda.current_stream(self.device).wait_stream(side)
         pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         if [p.grad.data_ptr() for p in state.model.parameters()] != grads:
@@ -285,8 +267,8 @@ class WindowRunner:
                                "accumulate into the old one")
         torch.cuda.synchronize(self.device)
         self.captures += 1
-        captured = CapturedWindow(graph, inputs, generators, ss_probs, outputs, per_replay,
-                                  time.perf_counter() - t0, pool_bytes, last_group=list(group))
+        captured = CapturedWindow(graph, inputs, generators, ss_probs, outputs,
+                                  time.perf_counter() - t0, pool_bytes)
         log.info("captured a window of %d microbatches in %.2f s (%d bytes of pool)",
                  len(group), captured.capture_s, pool_bytes)
         return self._with_host(first, plans), captured
@@ -304,9 +286,6 @@ class WindowRunner:
             advance(state, int(pb.n_examples), plan.applied)
         captured.graph.replay()
         captured.replays += 1
-        captured.last_group = list(group)
         self.replays += 1
-        for fn, n in captured.launches.items():
-            fn.launches += n
         outputs = [{k: v.clone() for k, v in out.items()} for out in captured.outputs]
         return self._with_host(outputs, plans)

@@ -131,3 +131,18 @@ def test_dq_kernel_is_the_backward_headers():
     for path in build.CSRC.iterdir():
         if path.name != BACKWARD_HEADER:
             assert "flash_bwd_dq_kernel" not in path.read_text()
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_count_launch_skips_calls_under_capture(monkeypatch, capturing):
+    """A wrapper's call under CUDA graph capture launches nothing and is not
+    counted; any other call is."""
+    import torch
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 3
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    build.count_launch(wrapper)
+    assert wrapper.launches == (3 if capturing else 4)

@@ -63,6 +63,25 @@ def test_ctc_gradient_matches_jax():
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_ref), rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("launcher", ["ctc_forward", "ctc_backward"])
+def test_ctc_kernel_launchers_take_cuda_tensors_only(launcher):
+    """A CPU batch reaches F.ctc_loss through ``ctc_nll``; the kernels'
+    launchers raise on it rather than fall back."""
+    from emg_tpu_torch.ops import ctc
+
+    lp, il, tg, tl, _ = ctc_inputs(5)
+    args = [torch.tensor(lp), torch.tensor(tg), torch.tensor(il), torch.tensor(tl)]
+    if launcher == "ctc_backward":
+        args += [torch.zeros(lp.shape[0], lp.shape[1], 2 * tg.shape[1] + 1),
+                 torch.zeros(lp.shape[0]), torch.ones(lp.shape[0])]
+    with pytest.raises(ValueError, match="cuda"):
+        getattr(ctc, launcher)(*args)
+    nll = ctc.ctc_nll(*args[:4])
+    ref = torch.nn.functional.ctc_loss(args[0].transpose(0, 1), *args[1:4], blank=43,
+                                       reduction="none")
+    assert torch.equal(nll, ref)
+
+
 @pytest.mark.parametrize("seq_len", [5, 9])
 def test_label_smoothing_matches_jax(seq_len):
     rng = np.random.default_rng(seq_len)
