@@ -72,9 +72,10 @@ class DataConfig:
     # host-RAM budget for the dataset's loaded-example LRU cache, in bytes;
     # 0 disables caching
     cache_bytes: int = 2 << 30
-    # DSP execution path of the JAX package ("auto" / "device" / "scipy").
-    # The port runs its DSP on the dataset's device; "scipy" raises
-    # NotImplementedError until the host DSP is ported.
+    # DSP execution path ("auto" / "device" / "scipy"), as the JAX
+    # package's: "device" the pipeline on the dataset's device, "scipy" the
+    # host front-end (dsp/host_dsp.py), "auto" scipy for a dataset on the
+    # CPU and the device pipeline on a card
     dsp_backend: str = "auto"
 
 

@@ -6,7 +6,10 @@ membership, silent->voiced target aliasing (the "heterogeneous data"
 mechanism: silent EMG borrows phoneme targets and audio features from the
 parallel voiced recording of the same sentence), per-utterance DSP through
 ``emg_tpu_torch.dsp.pipeline`` on the dataset's device, normalizer and tanh
-soft-clip transforms, and a collate function.
+soft-clip transforms, and a collate function. ``data.dsp_backend`` picks
+the DSP as the JAX package does: the device pipeline, or the scipy host
+front-end (``dsp/host_dsp.py``), which "auto" takes for a dataset on the
+CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from emg_tpu_torch.config import Config
 from emg_tpu_torch.runtime import resolve_device
 from emg_tpu_torch.dsp.audio_io import load_audio
+from emg_tpu_torch.dsp.host_dsp import HAVE_SCIPY, preprocess_emg_scipy
 from emg_tpu_torch.dsp.normalizer import FeatureNormalizer, load_normalizers, save_normalizers
 from emg_tpu_torch.dsp.pipeline import preprocess_emg, align_lengths
 from emg_tpu_torch.text.normalize import load_pron_dict, read_phonemes
@@ -93,9 +97,6 @@ class EMGDataset:
         no_normalizers: bool = False,
         device="cuda",
     ):
-        if config.data.dsp_backend == "scipy":
-            raise NotImplementedError("data.dsp_backend='scipy' (the host scipy DSP, "
-                                      "emg_tpu/dsp/host_dsp.py) is not yet ported")
         self.config = config
         self.device = resolve_device(device)
         dcfg = config.data
@@ -174,10 +175,29 @@ class EMGDataset:
         self._cache: "OrderedDict[int, dict]" = OrderedDict()
         self._cache_bytes = 0
         self._cache_budget = int(dcfg.cache_bytes)
+        self._host_dsp = None  # resolved by the first _use_host_dsp()
 
         sample = self.load_utterance(*self.example_indices[0])
         self.num_speech_features = sample[0].shape[1]
         self.num_features = sample[1].shape[1]
+
+    def _use_host_dsp(self) -> bool:
+        """The per-utterance DSP path (``data.dsp_backend``), resolved once:
+        "scipy" the host front-end, "device" the device pipeline, and
+        "auto" (anything else, as JAX's) the host front-end when the
+        dataset's device is the CPU, the JAX package's choice on a CPU-only
+        backend. On a card, "auto" takes the device pipeline (kernel 1)."""
+        if self._host_dsp is None:
+            mode = self.config.data.dsp_backend
+            if mode == "scipy":
+                if not HAVE_SCIPY:
+                    raise RuntimeError("dsp_backend='scipy' but scipy is unavailable")
+                self._host_dsp = True
+            elif mode == "device":
+                self._host_dsp = False
+            else:
+                self._host_dsp = HAVE_SCIPY and self.device.type == "cpu"
+        return self._host_dsp
 
     # -- per-utterance loading ---------------------------------------------
     def load_utterance(self, directory_info_or_dir, index: int, limit_length: bool = False):
@@ -200,11 +220,18 @@ class EMGDataset:
         )
 
         rm = tuple(int(c) for c in self.config.data.remove_channels)
-        buf, n_total, n_before, n_after = dsp_input(raw_emg, before, after)
-        out = preprocess_emg(
-            torch.as_tensor(buf, device=self.device), n_total, n_before, n_after, rm
-        )
-        emg_features = out.emg_features[: out.n_frames].cpu().numpy()
+        # the valid rows of the features and of the two signals, un-truncated
+        if self._use_host_dsp():
+            emg_features, emg_full, emg_orig_full = preprocess_emg_scipy(raw_emg, before, after, rm)
+        else:
+            buf, n_total, n_before, n_after = dsp_input(raw_emg, before, after)
+            out = preprocess_emg(
+                torch.as_tensor(buf, device=self.device), n_total, n_before, n_after, rm
+            )
+            emg_features, emg_full, emg_orig_full = (
+                t[:n].cpu().numpy() for t, n in ((out.emg_features, out.n_frames),
+                                                 (out.emg, out.n_feat), (out.emg_orig, out.n_raw))
+            )
 
         mfccs = load_audio(
             _audio_path(base_dir, index),
@@ -217,8 +244,8 @@ class EMGDataset:
             raise ValueError(f"EMG/audio frame misalignment in {base_dir}/{index}")
         F = emg_features.shape[0]
         (e0, elen), (r0, rlen) = align_lengths(F)
-        emg = out.emg[e0 : e0 + elen].cpu().numpy()
-        emg_orig = out.emg_orig[r0 : r0 + rlen].cpu().numpy()
+        emg = emg_full[e0 : e0 + elen]
+        emg_orig = emg_orig_full[r0 : r0 + rlen]
         if emg.shape[0] != F * 6:
             raise ValueError(f"EMG too short for its frames in {base_dir}/{index}")
 

@@ -16,12 +16,6 @@ import scipy.signal
 
 from emg_tpu_torch.dsp.mel import mel_spectrogram_np
 
-try:  # optional dependency — present in full deployments, absent in CI
-    import soundfile as _sf
-except Exception:  # pragma: no cover
-    _sf = None
-
-
 def read_audio(filename: str) -> Tuple[np.ndarray, int]:
     """Return (float64 mono samples in [-1, 1], sample_rate)."""
     if filename.endswith(".wav"):
@@ -40,12 +34,14 @@ def read_audio(filename: str) -> Tuple[np.ndarray, int]:
         if channels > 1:
             data = data.reshape(-1, channels)[:, 0]
         return data, rate
-    if _sf is None:
+    try:  # optional dependency, imported at first use: present in full deployments
+        import soundfile
+    except ImportError:
         raise RuntimeError(
             f"reading {filename} requires the optional 'soundfile' package "
             "(only .wav is supported without it)"
-        )
-    data, rate = _sf.read(filename)
+        ) from None
+    data, rate = soundfile.read(filename)
     if data.ndim > 1:
         data = data[:, 0]
     return data, rate

@@ -34,31 +34,53 @@ def _hann_window(n: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_window(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_hann_window(N_FFT), dtype=dtype, device=device)
+
+
 def _frame(x: torch.Tensor, num_frames: int) -> torch.Tensor:
-    """Frame axis 0 of (T, C) into (num_frames, FRAME_LENGTH, C)."""
-    return x.unfold(0, FRAME_LENGTH, HOP_LENGTH)[:num_frames].transpose(1, 2)
+    """Frame the time axis of (..., T, C) into (..., num_frames, FRAME_LENGTH, C)."""
+    return x.unfold(-2, FRAME_LENGTH, HOP_LENGTH)[..., :num_frames, :, :].transpose(-1, -2)
 
 
-def double_average(x: torch.Tensor, n: int) -> torch.Tensor:
+def _valid_rows(x: torch.Tensor, n) -> torch.Tensor:
+    """(..., T, 1) mask of the rows below ``n``: an int, or a tensor of the
+    lengths of x's leading axes."""
+    t = torch.arange(x.shape[-2], device=x.device)
+    if isinstance(n, torch.Tensor):
+        return (t < n[..., None])[..., None]
+    return (t < n)[:, None]
+
+
+def double_average(x: torch.Tensor, n) -> torch.Tensor:
     """Two passes of a 9-tap moving average, 'same' mode per pass
-    (reference data_utils.py:92-97), over the first ``n`` rows of x (T, C).
+    (reference data_utils.py:92-97), over the first ``n`` rows of x
+    (..., T, C); ``n`` as in ``get_emg_features_masked``.
 
     Each pass behaves as if the signal ended at row ``n``: the first pass
     spills nonzero values past ``n`` that the exact computation never sees,
     so they are re-zeroed between passes.
     """
     kernel = torch.full((1, 1, 9), 1.0 / 9.0, dtype=x.dtype, device=x.device)
+    T, C = x.shape[-2:]
 
-    def smooth(v):  # (T, C) -> (T, C); symmetric kernel: correlation == convolution
-        return F.conv1d(v.t()[:, None, :], kernel, padding=4)[:, 0, :].t()
+    def smooth(v):  # (..., T, C); symmetric kernel: correlation == convolution
+        rows = v.transpose(-1, -2).reshape(-1, 1, T)
+        return F.conv1d(rows, kernel, padding=4).reshape(v.shape[:-2] + (C, T)).transpose(-1, -2)
 
     v = smooth(x)
-    v = torch.where((torch.arange(x.shape[0], device=x.device) < n)[:, None], v, 0.0)
+    v = torch.where(_valid_rows(x, n), v, 0.0)
     return smooth(v)
 
 
-def get_emg_features_masked(emg: torch.Tensor, n: int):
+def get_emg_features_masked(emg: torch.Tensor, n):
     """(T_max, C) buffer with ``n`` valid rows -> (features, num_valid_frames).
+
+    With a leading batch axis, (U, T_max, C) and a (U,) integer tensor of
+    lengths, it is the JAX package's ``jax.vmap(get_emg_features_masked)``:
+    (U, F, 14*C) features and (U,) counts, computed on the buffer's device
+    with no read back to the host.
 
     Feature rows past the count are computed from junk samples and must be
     dropped by the caller.
@@ -67,15 +89,15 @@ def get_emg_features_masked(emg: torch.Tensor, n: int):
     # mean-center with a masked mean and zero the tail so the valid feature
     # rows match the exact-length computation ('same' mode zero-pads, which
     # the zeroed tail reproduces)
-    T, C = emg.shape
-    mask = (torch.arange(T, device=emg.device) < n)[:, None]
-    mean = torch.where(mask, emg, 0.0).sum(dim=0, keepdim=True) / n
+    mask = _valid_rows(emg, n)
+    count = n.to(emg.dtype)[..., None, None] if isinstance(n, torch.Tensor) else n
+    mean = torch.where(mask, emg, 0.0).sum(dim=-2, keepdim=True) / count
     x = torch.where(mask, emg - mean, 0.0)
     return _features_centered(x, n=n), valid
 
 
-def _features_centered(x: torch.Tensor, n: int) -> torch.Tensor:
-    T, C = x.shape
+def _features_centered(x: torch.Tensor, n) -> torch.Tensor:
+    T, C = x.shape[-2:]
     nf = n_frames(T)
     w = double_average(x, n=n)
     p = x - w
@@ -84,17 +106,17 @@ def _features_centered(x: torch.Tensor, n: int) -> torch.Tensor:
     fp = _frame(p, nf)
     fr = _frame(r, nf)
     fx = _frame(x, nf)
-    w_h = fw.mean(dim=1)
-    p_w = (fw * fw).mean(dim=1).sqrt()
-    p_r = (fr * fr).mean(dim=1).sqrt()
-    r_h = fr.mean(dim=1)
+    w_h = fw.mean(dim=-2)
+    p_w = (fw * fw).mean(dim=-2).sqrt()
+    p_r = (fr * fr).mean(dim=-2).sqrt()
+    r_h = fr.mean(dim=-2)
     p_z = torch.where(fp.abs() <= ZCR_THRESHOLD, 0.0, fp)
     sign = torch.signbit(p_z)
-    d = sign[:, 1:, :] != sign[:, :-1, :]
-    crossings = torch.cat([d[:, :1, :], d], dim=1)
-    z_p = crossings.to(torch.float32).mean(dim=1)
-    window = torch.as_tensor(_hann_window(N_FFT), dtype=x.dtype, device=x.device)
-    s = torch.fft.rfft(fx * window[None, :, None], n=N_FFT, dim=1).abs()
-    td = torch.stack([w_h, p_w, p_r, z_p, r_h], dim=1)
-    feats = torch.cat([td, s], dim=1)  # (F, 14, C)
-    return feats.transpose(1, 2).reshape(nf, 14 * C).to(torch.float32)
+    d = sign[..., 1:, :] != sign[..., :-1, :]
+    crossings = torch.cat([d[..., :1, :], d], dim=-2)
+    z_p = crossings.to(torch.float32).mean(dim=-2)
+    window = _device_window(x.dtype, x.device)
+    s = torch.fft.rfft(fx * window[:, None], n=N_FFT, dim=-2).abs()
+    td = torch.stack([w_h, p_w, p_r, z_p, r_h], dim=-2)
+    feats = torch.cat([td, s], dim=-2)  # (..., F, 14, C)
+    return feats.transpose(-1, -2).reshape(x.shape[:-2] + (nf, 14 * C)).to(torch.float32)

@@ -1,11 +1,12 @@
-"""Per-utterance EMG preprocessing: filters -> resample -> features.
+"""EMG preprocessing: filters -> resample -> features.
 
-Counterpart of ``emg_tpu/dsp/pipeline.py::preprocess_emg``: the reference's
-load_utterance DSP chain (read_emg.py:57-93) on the buffer's device:
-60 Hz-harmonic notches + drift high-pass over the neighbor-extended signal,
-context strip, dual-rate resample (689.06 Hz raw path, 516.79 Hz feature
-path), and 112-dim featurization, over a fixed bucket-length buffer with
-``n_total`` valid rows.
+Counterpart of ``emg_tpu/dsp/pipeline.py``: the reference's load_utterance
+DSP chain (read_emg.py:57-93) on the buffer's device: 60 Hz-harmonic
+notches + drift high-pass over the neighbor-extended signal, context strip,
+dual-rate resample (689.06 Hz raw path, 516.79 Hz feature path), and
+112-dim featurization, over a fixed bucket-length buffer with ``n_total``
+valid rows (``preprocess_emg``), or over a batch of such buffers with
+per-utterance lengths (``preprocess_emg_batched``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ SOURCE_RATE = 1000.0
 
 
 class Preprocessed(NamedTuple):
+    """One utterance's outputs, with int counts; from
+    ``preprocess_emg_batched`` every field has a leading U axis and the
+    counts are (U,) int64 tensors on the device."""
+
     emg_features: torch.Tensor  # (F_max, 112); valid rows [0, n_frames)
     emg: torch.Tensor  # (T_feat_max, C) 516.79 Hz signal
     emg_orig: torch.Tensor  # (T_raw_max, C) 689.06 Hz signal
@@ -65,6 +70,63 @@ def preprocess_emg(
         drop = torch.as_tensor([int(c) for c in remove_channels], device=emg.device)
         emg = emg.index_fill(1, drop, 0.0)
         emg_orig = emg_orig.index_fill(1, drop, 0.0)
+
+    feats, n_frames = get_emg_features_masked(emg, n_feat)
+    return Preprocessed(feats, emg, emg_orig, n_frames, n_feat, n_raw)
+
+
+def preprocess_emg_batched(
+    xs: torch.Tensor,
+    n_totals,
+    n_befores,
+    n_afters,
+    remove_channels: tuple = (),
+) -> Preprocessed:
+    """Filter + resample + featurize a batch of unequal-length utterances.
+
+    Args:
+      xs: (U, T_max, C) float32 raw 1000 Hz EMG buffers, zero-padded per
+        utterance.
+      n_totals / n_befores / n_afters: (U,) per-utterance sample counts:
+        integer tensors (on xs's device, for a call that copies nothing to
+        it) or sequences of ints.
+
+    The U utterances fold onto the channel axis, (T_max, U*C), so the IIR
+    scan (kernel 1 on the card) runs once a filter pass over U*C*m rows;
+    the length-dependent edge extensions, the context strip and the
+    resampling use per-column valid lengths, and the features take the
+    utterances as a batch axis. Nothing is read back to the host. Returns a
+    ``Preprocessed`` whose fields all carry a leading U axis.
+    """
+    U, T, C = xs.shape
+    device = xs.device
+    n_totals, n_befores, n_afters = (
+        torch.as_tensor(n, dtype=torch.int64, device=device)
+        for n in (n_totals, n_befores, n_afters)
+    )
+
+    def per_column(n):  # (U,) -> (U*C,), utterance-major as the fold
+        return n[:, None].expand(U, C).reshape(U * C)
+
+    folded = xs.transpose(0, 1).reshape(T, U * C)
+    n_cols = per_column(n_totals)
+    y = filters.notch_harmonics(folded, 60.0, SOURCE_RATE, n=n_cols)
+    y = filters.remove_drift(y, SOURCE_RATE, n=n_cols)
+
+    # strip the neighbor context per column: shift rows up by n_before
+    idx = (torch.arange(T, device=device)[:, None] + per_column(n_befores)[None, :]).clamp(0, T - 1)
+    y = torch.gather(y, 0, idx)
+    n_mid_cols = per_column(n_totals - n_befores - n_afters)
+
+    emg_orig, n_raw = subsample_masked(y, n_mid_cols, RAW_RATE, SOURCE_RATE)
+    emg, n_feat = subsample_masked(y, n_mid_cols, FEAT_RATE, SOURCE_RATE)
+    emg_orig = emg_orig.reshape(-1, U, C).transpose(0, 1).contiguous()  # (U, T', C)
+    emg = emg.reshape(-1, U, C).transpose(0, 1).contiguous()
+    n_raw, n_feat = n_raw[::C], n_feat[::C]
+
+    for c in remove_channels:
+        emg[:, :, int(c)] = 0.0
+        emg_orig[:, :, int(c)] = 0.0
 
     feats, n_frames = get_emg_features_masked(emg, n_feat)
     return Preprocessed(feats, emg, emg_orig, n_frames, n_feat, n_raw)

@@ -7,8 +7,8 @@ whose perturbed JAX weights are carried into the port, and an order-3 ARPA
 that the port's ``lm_train`` trains on the corpus's sentences. Float32 on
 both sides, beam width 16, two utterances per device-beam launch.
 
-``python -m emg_tpu_torch.cli --evaluate_saved_beam_search`` (device DSP ->
-encoder -> beam -> WER, on the CPU) writes log_beam_search.txt with the
+``python -m emg_tpu_torch.cli --evaluate_saved_beam_search`` (device DSP,
+``--data.dsp_backend device`` -> encoder -> beam -> WER, on the CPU) writes log_beam_search.txt with the
 same prediction lines and the same WER as ``emg_tpu.cli``'s, through the
 device beam and through the host beam, and through the device beam with
 ``--quantize_int8 true`` and with ``--continuous_lanes 2`` (on a 12-sentence
@@ -52,7 +52,7 @@ def make_setup(tmp_path_factory, n_sentences: int):
     arpa = str(root / "lm.arpa")
     lm_train.write_arpa(lm_train.train_arpa(FIXTURE_SENTENCES, order=3), arpa)
     argv = ["--decode.compute_dtype", "float32", "--BeamWidth", "16",
-            "--batch_utterances", "2", "--lang_model", arpa]
+            "--batch_utterances", "2", "--lang_model", arpa, "--data.dsp_backend", "device"]
     argv += [f"--model.{k}={v}" for k, v in GEOMETRY.items()]
     argv += ["--silent_data_directories", paths["silent_data_directories"],
              "--voiced_data_directories", paths["voiced_data_directories"],

@@ -7,9 +7,10 @@ the CPU platform).
   holds the step to JAX's and to the step without remat).
 - ``--debug`` hands ``device="cpu"`` to both CLI modes, whatever
   ``--device`` says.
-- ``data.dsp_backend="scipy"`` (the JAX package's host scipy DSP) raises
-  ``NotImplementedError`` when the dataset is built; "auto" and "device"
-  build it, on the port's device DSP.
+- ``data.dsp_backend`` resolves as the JAX package's: each backend builds
+  the dataset; "scipy" and, on the CPU, "auto" run the host scipy DSP and
+  load JAX's host-DSP utterance bitwise; "device" runs the device DSP and
+  matches it to the DSP bounds (tests/test_torch_dsp.py).
 - The trainer builds on a device mesh as one of its ranks: 2x1, 1x2 and
   2x2 meshes of CPU ranks that ``parallel.distributed.launch`` starts (the
   JAX case ``mesh_4x2`` runs here as a 2x2 of four ranks), and two
@@ -76,19 +77,39 @@ def test_debug_runs_on_the_cpu(tmp_path, monkeypatch, mode, extra, flags, expect
 
 
 @pytest.mark.parametrize("backend", ["scipy", "auto", "device"])
-def test_only_the_scipy_dsp_backend_raises(tmp_path, backend):
+def test_each_dsp_backend_builds_and_matches_jax(tmp_path, backend):
+    import numpy as np
+
+    from emg_tpu.config import Config as JaxConfig
+    from emg_tpu.data.dataset import EMGDataset as JaxEMGDataset
+    from tests.test_torch_dsp import FEATURE_BOUND, SIGNAL_BOUND, assert_close_at_scale
+
     paths = make_synthetic_corpus(str(tmp_path), n_sentences=2, seed=0)
-    cfg = Config()
-    cfg.data.silent_data_directories = [paths["silent_data_directories"]]
-    cfg.data.voiced_data_directories = paths["voiced_data_directories"].split(",")
-    cfg.data.testset_file = paths["testset_file"]
-    cfg.paths.dict = paths["dict"]
-    cfg.data.dsp_backend = backend
-    if backend == "scipy":
-        with pytest.raises(NotImplementedError, match="dsp_backend"):
-            EMGDataset(cfg, test=True, no_normalizers=True, device="cpu")
-    else:
-        assert len(EMGDataset(cfg, test=True, no_normalizers=True, device="cpu")) > 0
+
+    def config(cls, backend):
+        cfg = cls()
+        cfg.data.silent_data_directories = [paths["silent_data_directories"]]
+        cfg.data.voiced_data_directories = paths["voiced_data_directories"].split(",")
+        cfg.data.testset_file = paths["testset_file"]
+        cfg.paths.dict = paths["dict"]
+        cfg.data.dsp_backend = backend
+        return cfg
+
+    dataset = EMGDataset(config(Config, backend), test=True, no_normalizers=True, device="cpu")
+    assert len(dataset) > 0
+    assert dataset._use_host_dsp() == (backend != "device")
+    ref = JaxEMGDataset(config(JaxConfig, "scipy"), test=True, no_normalizers=True)
+    for (d, i), (jd, ji) in zip(dataset.example_indices, ref.example_indices):
+        got, want = dataset.load_utterance(d, i), ref.load_utterance(jd, ji)
+        assert got[2:5] == want[2:5]  # text, book location, phonemes
+        np.testing.assert_array_equal(got[0], want[0])  # the audio features
+        for g, w, bound in ((got[1], want[1], FEATURE_BOUND), (got[5], want[5], SIGNAL_BOUND),
+                            (got[6], want[6], SIGNAL_BOUND)):
+            assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+            if backend == "device":
+                assert_close_at_scale(g, w, bound)
+            else:
+                np.testing.assert_array_equal(g, w)
 
 
 def _config(out, parallel):

@@ -9,7 +9,8 @@ carried into the port. Float32 on both sides.
 - The port's CLI entry point ``evaluate_saved_greedy_search`` (device DSP
   -> encoder -> KV-cached greedy -> PER, on the CPU) runs end to end and
   returns the same PER and accuracy as the JAX ``run_greedy`` on the very
-  batches the port's dataset built. The comparison shares batches rather
+  batches the port's dataset built (``data.dsp_backend="device"``: "auto"
+  would take the scipy host DSP on the CPU). The comparison shares batches rather
   than crossing the two DSP paths, whose ~2e-4 signal difference may flip
   an argmax under random weights.
 """
@@ -55,6 +56,7 @@ def setup(tmp_path_factory):
     cfg.paths.output_directory = str(root / "out")
     cfg.model = ModelConfig(**GEOMETRY)
     cfg.decode.compute_dtype = "float32"
+    cfg.data.dsp_backend = "device"
     make_normalizers(cfg, device="cpu")
 
     testset = EMGDataset(cfg, test=True, device="cpu")
@@ -94,7 +96,7 @@ def test_run_greedy_matches_jax(setup):
 
 def test_cli_per_matches_jax_on_shared_batches(setup):
     cfg, prepared, jm, variables, _ = setup
-    argv = ["--device", "cpu", "--decode.compute_dtype", "float32"]
+    argv = ["--device", "cpu", "--decode.compute_dtype", "float32", "--data.dsp_backend", "device"]
     argv += [f"--model.{k}={v}" for k, v in GEOMETRY.items()]
     for key in ("silent_data_directories", "voiced_data_directories"):
         argv += [f"--data.{key}", ",".join(getattr(cfg.data, key))]

@@ -77,6 +77,42 @@ def test_beam_modules_import_no_jax(beam_imports, name):
     assert beam_imports[name] == []
 
 
+CAPTURE_MODULES = [
+    "emg_tpu_torch.collect", "emg_tpu_torch.collect.board", "emg_tpu_torch.collect.book",
+    "emg_tpu_torch.collect.recorder", "emg_tpu_torch.collect.session",
+    "emg_tpu_torch.collect.denoise", "emg_tpu_torch.utils", "emg_tpu_torch.utils.profiling",
+    "emg_tpu_torch.data.emg_uka", "emg_tpu_torch.dsp.host_dsp", "emg_tpu_torch.dsp.audio_io",
+]
+# capture hardware and UI packages: imported inside the functions that use them
+HARDWARE = ("brainflow", "sounddevice", "soundfile", "nltk", "matplotlib", "curses")
+
+
+@pytest.fixture(scope="module")
+def capture_imports():
+    """A fresh interpreter imports the capture layer, the utilities and the
+    adapters one after another; after each, the JAX, emg_tpu and hardware
+    modules loaded so far."""
+    code = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for name in {CAPTURE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"    out[name] = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + HARDWARE!r})\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", CAPTURE_MODULES)
+def test_capture_modules_import_no_jax_or_hardware(capture_imports, name):
+    assert name in port_modules()
+    assert capture_imports[name] == []
+
+
 def test_lm_binding_builds_under_build_only(tmp_path, monkeypatch):
     """The native ARPA scorer compiles native/ngram_lm.cc into the
     gitignored build/ tree and writes nothing into native/."""
