@@ -161,6 +161,24 @@ Phases, in order; any failure exits non-zero:
      the card with data.dsp_backend "auto" (the device DSP: K1 launches)
      and "scipy" (the host DSP), held to each other; then per utterance the
      host scipy DSP (this machine's CPU) against the device DSP, warm.
+ 15. bfloat16 training at full width (--model.compute_dtype bfloat16; the
+     flagship, dropout 0.2): (a) phase 8's microbatch at bf16, twice with
+     the kernels and once on their plain versions (the plain attention and
+     F.ctc_loss), from the same weights, batch and seeds: the losses, the
+     whole gradient and each parameter's held to BF16_STEP_*, beside the
+     kernel runs' own difference; then the bf16 step against the float32
+     one, warm, in turns: CUDA-event ms and each one's peak memory; (b) one
+     epoch of the CLI's train mode at bf16 (phase 7's flags): K1, K3-K5 and
+     the CTC's launches over that run alone (K3-K5 at bf16 only, the CTC on
+     float32 log-probs only), frames/s and peak memory beside phase 7's,
+     greedy evaluation of its model.pt, then K3-K5 at bf16 against their
+     plain versions at every shape it launched, timed; (c) phase 13's first
+     window case at bf16 (``window_case``: two eager runs and one run of
+     window graphs, held to their margin, the replays' launches from a
+     trace); (d) ``filtfilt`` and ``preprocess_emg_host`` on a test
+     utterance with K1 and with its plain version. The kernels line's K3-K5
+     rows gain "bf16" (their times at (b)'s largest shape) and every row
+     "launches_phase15" ((b)'s counts).
 The second-to-last line is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. ``--out`` also writes every
 measurement to a JSON file.
@@ -646,11 +664,13 @@ def check_train_attention(record):
     record["flash_attention_relpos_train"] = rows
 
 
-def check_launched_shapes(shapes, record):
+def check_launched_shapes(shapes, record, key="flash_attention_relpos_train_launched"):
     """Kernels 3-5 against the plain version at every (B, T, dtype, rate)
     the training run launched them with, and at dropout 0 for the SDPA
-    yardstick, timed. Returns the kernels line's rows: the largest shape
-    (B*T*T) at the training run's rate."""
+    yardstick, timed; the rows go to ``record[key]`` and SDPA's forward and
+    backward ms to ``record[key + "_sdpa_fwd_bwd_ms"]``. Returns the
+    kernels line's rows: the largest shape (B*T*T) at the training run's
+    rate."""
     relpos, gen = make_relpos(4)
     rows = []
     for B, T, dtype, rate in sorted(shapes):
@@ -658,7 +678,7 @@ def check_launched_shapes(shapes, record):
         for r in sorted({rate, 0.0}):
             rows.append(compare_train_attention(relpos, gen, B, T, dt, r, timed=True))
             torch.cuda.empty_cache()
-    record["flash_attention_relpos_train_launched"] = rows
+    record[key] = rows
     B, T, dtype, rate = max(shapes, key=lambda s: s[0] * s[1] * s[1])
     rep = next(r for r in rows if (r["B"], r["T"], r["dtype"], r["rate"]) == (B, T, dtype, rate))
     lib = next(r for r in rows if (r["B"], r["T"], r["dtype"], r["rate"]) == (B, T, dtype, 0.0))
@@ -667,7 +687,7 @@ def check_launched_shapes(shapes, record):
     rep["flash_train_fwd"]["library_ms"] = lib["sdpa_fwd_ms"]
     # SDPA's forward + backward has no one kernel to sit beside: PERF.md
     # reports it beside K4 + K5 together
-    record["flash_attention_relpos_train_sdpa_fwd_bwd_ms"] = lib["sdpa_fwd_bwd_ms"]
+    record[key + "_sdpa_fwd_bwd_ms"] = lib["sdpa_fwd_bwd_ms"]
     return rep
 
 
@@ -3837,6 +3857,327 @@ def dsp_paths(argv, root, record):
             "capture_auto": capture["k1_launches"]["auto"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bfloat16 training at full width
+# ---------------------------------------------------------------------------
+
+BF16 = ["--model.compute_dtype", "bfloat16"]
+# one bf16 train step, kernels (K3-K5, the CTC's) vs their plain versions
+# (the plain attention and F.ctc_loss on the card). Both round the
+# attention's probabilities and ds to bfloat16 at the same points, from
+# float32 values that differ at ~1e-7, so a bfloat16 activation or
+# gradient flips by one ulp now and then and the step's bfloat16 layers
+# carry it on. The bounds come from the CPU tests
+# (tests/test_torch_bf16_train.py): the losses to its 1e-2; the whole
+# gradient to 5e-2 of its norm and each parameter's to 0.25 of its largest
+# magnitude (two bfloat16 computations of one gradient on the CPU, fused
+# and unfused attention on the tiny model: 2.9e-3 and 1.9e-2; the conv
+# stack's BatchNorm backward amplifies a flip); the BN-fed conv biases
+# (true gradient 0) to 1e-3 of the model's largest gradient (1.2e-4 on the
+# CPU).
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_NORM_TOL = 5e-2
+BF16_STEP_GRAD_TOL = 0.25
+BF16_STEP_NOISE_TOL = 1e-3
+# the bf16 CLI run: phase 7's flags, one epoch (its 2 microbatches, one
+# apply at batch_size_grad 20)
+BF16_TRAIN_ARGS = TRAIN_ARGS[2:] + ["--n_epochs", "1"] + BF16
+K345 = ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv")
+
+
+def plain_step_kernels():
+    """Patches that put the train step's kernels (K3-K5, the CTC's) on
+    their plain versions on the card: the plain attention under autograd
+    and F.ctc_loss."""
+    import torch.nn.functional as F
+
+    from emg_tpu_torch.ops import flash_attention as fa
+
+    def ctc_plain(lp, targets, il, tl, blank=43):
+        return F.ctc_loss(lp.transpose(0, 1), targets, il, tl, blank=blank, reduction="none")
+
+    return [mock.patch("emg_tpu_torch.models.attention.flash_attention_relpos_train",
+                       fa.flash_attention_relpos_train_plain),
+            mock.patch("emg_tpu_torch.ops.ctc.ctc_nll", ctc_plain)]
+
+
+def bf16_step(argv, record) -> dict:
+    """Phase 15 (a): one bf16 train step of the flagship (dropout 0.2) at
+    phase 8's microbatch, twice with the kernels and once on their plain
+    versions, from the same weights, batch and generator seeds: the losses,
+    the whole gradient's and each parameter's error (the kernel runs' own
+    difference beside them); then the bf16 step against phase 8's float32
+    step: each one's peak memory over its first step and the median of
+    three warm steps' CUDA-event and wall ms, the two taken in turn."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.models.model import EMGModel
+    from emg_tpu_torch.parallel.train_step import make_train_step
+    from emg_tpu_torch.train.state import create_train_state
+
+    cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)] + BF16)
+    idxs, pb, max_frames = largest_batch(cfg)
+    step = make_train_step(cfg.train)
+    counters = kernel_counters()
+
+    def state_for(model_cfg):
+        return create_train_state(EMGModel(model_cfg, device=DEVICE,
+                                           generator=torch.Generator().manual_seed(0)), cfg.train)
+
+    def first_step(state, plain=False):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with contextlib.ExitStack() as stack:
+            for patch in (plain_step_kernels() if plain else []):
+                stack.enter_context(patch)
+            metrics = step(state, pb, max_frames, torch.Generator(device=DEVICE))
+        torch.cuda.synchronize()
+        return dict(metrics=metrics, launches={k: fn.launches for k, fn in counters.items()},
+                    state_bytes=before, step_peak_bytes=torch.cuda.max_memory_allocated() - before)
+
+    states = {"bf16": state_for(cfg.model), "bf16_again": state_for(cfg.model),
+              "bf16_plain": state_for(cfg.model),
+              "f32": state_for(dataclasses.replace(cfg.model, compute_dtype="float32"))}
+    runs = {name: first_step(st, plain=name == "bf16_plain") for name, st in states.items()}
+    layers = cfg.model.num_layers_encoder
+    want = dict({k: layers for k in K345}, ctc_forward=1, ctc_backward=1)
+    for name, run in runs.items():
+        got = {k: run["launches"][k] for k in want}
+        expected = dict.fromkeys(want, 0) if name == "bf16_plain" else want
+        if got != expected or run["metrics"]["applied"]:
+            raise AssertionError(f"the {name} step did not run as set up: {got} launches")
+    grads = {name: {n: p.grad.detach().float().clone() for n, p in st.model.named_parameters()}
+             for name, st in states.items() if name != "f32"}
+    largest = max(float(g.abs().max()) for g in grads["bf16_plain"].values())
+    losses = {k: (float(runs["bf16"]["metrics"][k]), float(runs["bf16_plain"]["metrics"][k]))
+              for k in ("loss", "dec_loss", "enc_loss")}
+    norm_err, worst, noise = grad_errors(grads["bf16"], grads["bf16_plain"], largest)
+    floor = grad_errors(grads["bf16"], grads["bf16_again"], largest)
+    del grads
+    # warm steps, float32 and bfloat16 in turn
+    times = {"f32": ([], []), "bf16": ([], [])}
+    for _ in range(3):
+        for name, (events, walls) in times.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            step(states[name], pb, max_frames, torch.Generator(device=DEVICE))
+            end.record()
+            torch.cuda.synchronize()
+            events.append(start.elapsed_time(end))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = dict(
+        examples=len(idxs), max_frames=max_frames, losses=losses,
+        f32_loss=float(runs["f32"]["metrics"]["loss"]),
+        grad_norm_rel_err=norm_err, worst_grad_rel_err=worst, bn_fed_bias_err_of_largest=noise,
+        largest_grad=largest,
+        kernel_vs_kernel=dict(grad_norm_rel_err=floor[0], worst_grad_rel_err=floor[1],
+                              bn_fed_bias_err_of_largest=floor[2]),
+        launches={name: run["launches"] for name, run in runs.items()},
+        **{f"{k}_{name}": runs[name][k] for name in ("bf16", "f32")
+           for k in ("state_bytes", "step_peak_bytes")},
+        **{f"warm_step_ms_{name}": float(np.median(ev)) for name, (ev, _) in times.items()},
+        **{f"warm_steps_ms_{name}": ev for name, (ev, _) in times.items()},
+        **{f"warm_step_wall_ms_{name}": float(np.median(w)) for name, (_, w) in times.items()})
+    record["train_step_bf16"] = result
+    log(f"bf16 train step, kernels vs plain and against float32 {json.dumps(result)}")
+    for k, (a, b) in losses.items():
+        if not abs(a - b) <= BF16_STEP_LOSS_RTOL * abs(b):
+            raise AssertionError(f"bf16 {k} differs between the kernel and plain steps: {losses}")
+    if not (norm_err <= BF16_STEP_NORM_TOL and max(worst.values()) <= BF16_STEP_GRAD_TOL
+            and noise <= BF16_STEP_NOISE_TOL):
+        raise AssertionError(f"bf16 gradients differ between the kernel and plain steps: {result}")
+    return result
+
+
+def recording_frames(sink: list):
+    """Patch the trainer to append each training microbatch's encoder
+    frames to sink, as it assembles the batch (a step and a window alike);
+    the run itself is unchanged."""
+    from emg_tpu_torch.train.trainer import Trainer
+
+    real = Trainer._prepare
+
+    def prepare(self, dataset, idxs, sharded=True):
+        out = real(self, dataset, idxs, sharded)
+        if dataset is self.trainset and sharded:  # not a PER report's batch
+            sink.append(int(np.sum(out[0].lengths)))
+        return out
+    return mock.patch.object(Trainer, "_prepare", prepare)
+
+
+def recording_ctc_dtypes(dtypes: set):
+    """Patch the CTC loss to record the dtype of each call's log-probs."""
+    from emg_tpu_torch.ops import ctc as ctc_module
+
+    real = ctc_module.ctc_nll
+
+    def record(lp, *args, **kwargs):
+        dtypes.add(str(lp.dtype).split(".")[-1])
+        return real(lp, *args, **kwargs)
+    return mock.patch.object(ctc_module, "ctc_nll", record)
+
+
+def bf16_train_through_cli(argv, root, record) -> dict:
+    """Phase 15 (b): one epoch of the CLI's train mode at bfloat16 (phase
+    7's flags), its launches over that run alone, its train loop's frames/s
+    and peak memory beside phase 7's float32 run; greedy evaluation of the
+    model.pt it wrote; then K3-K5 at bfloat16 against their plain versions
+    at every shape the run launched them with, timed."""
+    from emg_tpu_torch import cli
+    from emg_tpu_torch.train.trainer import Trainer
+
+    out = os.path.join(root, "train_bf16")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    shapes, ctc_shapes, ctc_dtypes, frames, eval_s, per_s = set(), set(), set(), [], [], []
+    t0 = time.perf_counter()
+    with recording_shapes(shapes), recording_ctc(ctc_shapes), recording_ctc_dtypes(ctc_dtypes), \
+            recording_frames(frames), timed_method(Trainer, "evaluation_loop", eval_s), \
+            timed_method(Trainer, "report_PER", per_s):
+        trainer = cli.main(argv + BF16_TRAIN_ARGS + ["--device", DEVICE, "--output_directory", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    logging.getLogger().handlers.clear()
+    losses = trainer.train_losses
+    n = len(losses)
+    loop_s = sum(trainer.epoch_seconds) - sum(s for _, s in eval_s + per_s)
+    f32 = record.get("training", {})
+    result = dict(
+        microbatches=n, losses=losses, launches=launches, cli_wall_s=wall, peak_mem_bytes=peak,
+        epoch_seconds=trainer.epoch_seconds, evaluation_s=eval_s, per_report_s=per_s,
+        frames=sum(frames), train_loop_s=loop_s, frames_per_s_train_loop=sum(frames) / loop_s,
+        attention_shapes=sorted(shapes), ctc_shapes=sorted(ctc_shapes),
+        ctc_log_prob_dtypes=sorted(ctc_dtypes),
+        # phase 7's float32 run: its first epoch (as cold as this one) and
+        # its peak over three epochs
+        f32_first_epoch_frames_per_s=(f32.get("frames_per_s_train_loop_by_epoch") or [None])[0],
+        f32_peak_mem_bytes=f32.get("peak_mem_bytes"))
+    layers = trainer.config.model.num_layers_encoder
+    if not (n == 2 and all(np.isfinite(losses))):
+        raise AssertionError(f"the bf16 run trained {n} microbatches, losses {losses}")
+    if any(launches[k] != layers * n for k in K345) or min(
+            launches[k] for k in ("iir_scan", "ctc_forward", "ctc_backward")) < 1:
+        raise AssertionError(f"a kernel of the bf16 training path did not launch as it should: "
+                             f"{launches}")
+    if {dt for _, _, dt, _ in shapes} != {"bfloat16"} or ctc_dtypes != {"float32"}:
+        raise AssertionError(f"the bf16 run gave K3-K5 {sorted(shapes)} and the CTC "
+                             f"{sorted(ctc_dtypes)}")
+    per, acc = cli.main(argv + ["--device", DEVICE, "--output_directory",
+                                os.path.join(root, "eval_bf16"),
+                                "--evaluate_saved_greedy_search", os.path.join(out, "model.pt")])
+    logging.getLogger().handlers.clear()
+    result["served"] = dict(per=per, accuracy=acc)
+    log(f"bf16 training through the CLI {json.dumps(result)}")
+    if not 0.0 <= per < float("inf"):
+        raise AssertionError(f"PER of the bf16-trained model is not a finite rate: {per}")
+    result["k345"] = check_launched_shapes(shapes, record, key="bf16_flash_attention_launched")
+    record["training_bf16"] = result
+    return result
+
+
+def bf16_windows(root, record) -> dict:
+    """Phase 15 (c): phase 13's first window case (B=2 at T=256) at
+    bfloat16 (``window_case``), its replay held to its eager runs' margin."""
+    result = record["fused_windows_bf16"] = window_case(
+        root, "window_corpus_bf16", WINDOW_CORPUS, WINDOW_ARGS + BF16)
+    if not any(g["replays"] > 0 and g["microbatches"] > 1 for g in result["graphs"]):
+        raise AssertionError(f"no bf16 window graph of 2 microbatches replayed: {result['graphs']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def dsp_extras_on_k1(argv, record) -> dict:
+    """Phase 15 (d): ``filtfilt`` (the drift high-pass and the 60 Hz notch)
+    over a test utterance and ``preprocess_emg_host`` on it with its
+    neighbours, each with K1 and with K1's plain version: K1's launches
+    (2 a filtfilt, 16 a DSP call) and the two held to DSP_TOL, the
+    utterance alone (unpadded ends) to UNPADDED_EDGE_REL of the peak."""
+    from emg_tpu_torch.config import Config
+    from emg_tpu_torch.data.dataset import EMGDataset
+    from emg_tpu_torch.dsp import filters
+    from emg_tpu_torch.dsp.pipeline import preprocess_emg_host
+    from emg_tpu_torch.ops.iir_scan import iir_scan, iir_scan_plain
+
+    testset = EMGDataset(Config.from_args(argv), test=True, device=DEVICE)
+    directory, idx = testset.example_indices[0]
+    paths = [os.path.join(directory.directory, f"{i}_emg.npy") for i in (idx, idx - 1, idx + 1)]
+    raw = np.load(paths[0])
+    before, after = (np.load(p) if os.path.exists(p) else np.zeros((0, raw.shape[1]), raw.dtype)
+                     for p in paths[1:])
+    x = torch.as_tensor(raw, dtype=torch.float32, device=DEVICE)
+    plain = mock.patch("emg_tpu_torch.dsp.filters.iir_scan", iir_scan_plain)
+
+    def both(fn):
+        iir_scan.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        launched = iir_scan.launches
+        with plain:
+            want = fn()
+        if iir_scan.launches != launched:
+            raise AssertionError("K1's plain version launched K1")
+        return got, want, launched
+
+    rows = {}
+    for name, (b, a) in (("filtfilt_highpass", filters.design_highpass(3, 2.0, 1000.0)),
+                         ("filtfilt_notch", filters.design_notch(60.0, 30.0, 1000.0))):
+        got, want, launched = both(lambda: filters.filtfilt(b, a, x))
+        err = float((got - want).abs().max() / want.abs().max())
+        rows[name] = dict(k1_launches=launched, edge_rel=err, samples=raw.shape[0])
+        if launched != 2 or not err <= UNPADDED_EDGE_REL:
+            raise AssertionError(f"{name} on K1 against its plain version: {rows[name]}")
+    got, want, launched = both(lambda: preprocess_emg_host(raw, before, after, device=DEVICE))
+    worst = dsp_disagreement([(key, torch.as_tensor(g), torch.as_tensor(w))
+                              for key, g, w in zip(("features", "signal", "signal"), got, want)])
+    padded = min(before.shape[0], after.shape[0]) >= PADDED_SAMPLES
+    rows["preprocess_emg_host"] = dict(k1_launches=launched, worst=worst, padded=padded,
+                                       samples=[before.shape[0], raw.shape[0], after.shape[0]],
+                                       frames=int(got[0].shape[0]))
+    record["dsp_extras_k1"] = rows
+    log(f"filtfilt and preprocess_emg_host on K1 vs plain {json.dumps(rows)}")
+    if launched != 16 or not dsp_within(worst, padded, UNPADDED_EDGE_REL):
+        raise AssertionError(f"preprocess_emg_host on K1 against its plain version: {rows}")
+    return rows
+
+
+def bf16_training(argv, root, record):
+    t0 = time.perf_counter()
+    step = bf16_step(argv, record)
+    t1 = time.perf_counter()
+    cli_run = bf16_train_through_cli(argv, root, record)
+    t2 = time.perf_counter()
+    windows = bf16_windows(root, record)
+    t3 = time.perf_counter()
+    dsp = dsp_extras_on_k1(argv, record)
+    record["bf16_parts_s"] = dict(step=t1 - t0, cli=t2 - t1, windows=t3 - t2,
+                                  dsp=time.perf_counter() - t3)
+    record["bf16_phase_s"] = time.perf_counter() - t0
+    log(f"phase 15 took {record['bf16_phase_s']:.1f} s")
+    summary = dict(
+        step={k: step[k] for k in ("losses", "grad_norm_rel_err", "bn_fed_bias_err_of_largest",
+                                   "kernel_vs_kernel", "warm_step_ms_bf16", "warm_step_ms_f32",
+                                   "step_peak_bytes_bf16", "step_peak_bytes_f32")},
+        cli={k: cli_run[k] for k in ("launches", "frames_per_s_train_loop", "peak_mem_bytes",
+                                     "f32_first_epoch_frames_per_s", "f32_peak_mem_bytes",
+                                     "served", "attention_shapes")},
+        windows={k: windows[k] for k in ("margin", "window_vs_eager", "captures", "replays",
+                                         "launches_in_replays", "replay_vs_eager")},
+        dsp=dsp, phase_s=record["bf16_phase_s"])
+    print(json.dumps({"bf16_training": summary}, default=str), flush=True)
+    return cli_run
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3902,6 +4243,8 @@ def main():
         training_extras(argv, root, record)
         log("phase 14: the batched DSP, capture to data, the host scipy DSP")
         dsp_launches = dsp_paths(argv, root, record)
+        log("phase 15: bfloat16 training at full width")
+        bf16 = bf16_training(argv, root, record)
 
     # K1 and K2 count over the greedy serving run (phase 9's JSON holds
     # their counts over the beam run), K3-K5 over the training run
@@ -3927,12 +4270,19 @@ def main():
         ("ctc_backward", ctc_source, "emg_tpu/ops/ctc.py:40 (optax.ctc_loss, an XLA op)"),
     ):
         row = rows[name]
+        # phase 15: the bf16 CLI run's launches, and K3-K5 at its largest shape
+        extra = dict(launches_phase15=bf16["launches"][name])
+        if name in bf16["k345"]:
+            extra["bf16"] = {k: bf16["k345"][name][k] for k in (
+                "B", "T", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            extra["bf16"]["library_ms"] = bf16["k345"][name].get("library_ms")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             **({"launches_phase14": row["launches_phase14"]} if "launches_phase14" in row else {}),
+            **extra,
         })
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - started

@@ -130,6 +130,11 @@ def make_packed_batch(
 RAW_INT16_SCALE = 32767.0 / 50.0
 
 
+def frame_bucket_for(lengths: Sequence[int]) -> int:
+    """The encoder's frame bucket for a batch of these frame counts."""
+    return bucket_up(max(lengths), FRAME_BUCKETS)
+
+
 def quantize_packed_raw(pb: PackedBatch) -> PackedBatch:
     """Host side: packed_raw float32 -> int16."""
     if pb.packed_raw.dtype == np.int16:

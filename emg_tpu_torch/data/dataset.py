@@ -14,6 +14,7 @@ CPU.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -259,6 +260,22 @@ class EMGDataset:
         )
 
     # -- dataset protocol --------------------------------------------------
+    def _with_examples(self, example_indices) -> "EMGDataset":
+        """A shallow copy over ``example_indices``, with a cache of its own."""
+        result = copy.copy(self)
+        result.example_indices = example_indices
+        result._cache = OrderedDict()
+        result._cache_bytes = 0
+        return result
+
+    def silent_subset(self) -> "EMGDataset":
+        """The examples from silent sessions."""
+        return self._with_examples([e for e in self.example_indices if e[0].silent])
+
+    def subset(self, fraction: float) -> "EMGDataset":
+        """The first ``fraction`` of the examples, in the dataset's order."""
+        return self._with_examples(self.example_indices[: int(fraction * len(self.example_indices))])
+
     def __len__(self):
         return len(self.example_indices)
 

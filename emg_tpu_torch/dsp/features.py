@@ -74,6 +74,14 @@ def double_average(x: torch.Tensor, n) -> torch.Tensor:
     return smooth(v)
 
 
+def get_emg_features(emg: torch.Tensor) -> torch.Tensor:
+    """(T, C) filtered and resampled EMG -> (n_frames(T), 14*C) float32
+    features over the whole length. Per channel the order is the
+    reference's: the 5 time-domain features, then the 9 STFT bins."""
+    x = emg - emg.mean(dim=0, keepdim=True)
+    return _features_centered(x, n=x.shape[0])
+
+
 def get_emg_features_masked(emg: torch.Tensor, n):
     """(T_max, C) buffer with ``n`` valid rows -> (features, num_valid_frames).
 

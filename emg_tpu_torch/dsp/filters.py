@@ -8,12 +8,16 @@ The filters are designed on the host (scipy, float64) and run on the
 tensor's device as complex diagonal recurrences in each filter's eigenbasis
 through ``ops.iir_scan`` (the CUDA kernel on the card, its plain version on
 the CPU). ``filtfilt_masked`` filters the first ``n`` rows of a fixed-size
-buffer, so one bucketed buffer serves utterances of any length up to it.
+buffer, so one bucketed buffer serves utterances of any length up to it;
+``lfilter`` and ``filtfilt`` are scipy's exact-length forms, over the same
+recurrence.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
+
 import numpy as np
 import scipy.signal
 import torch
@@ -148,6 +152,45 @@ def _lfilter_core(flt: DeviceFilter, x, z_init, reverse: bool = False,
     return flt.b0 * x + z0_adj.t()
 
 
+def lfilter(b, a, x: torch.Tensor, zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """scipy.signal.lfilter along axis 0 of ``x`` with shape (T,) or (T, C),
+    computed in float32 and returned at x's dtype. ``zi`` is the initial
+    DF2T state, (m,) or (C, m) (default zero)."""
+    flt = device_filter(_key(b), _key(a), x.device)
+    squeeze = x.dim() == 1
+    xf = (x[:, None] if squeeze else x).to(torch.float32)
+    C = xf.shape[1]
+    z_init = (xf.new_zeros((C, flt.m)) if zi is None else
+              torch.as_tensor(zi, dtype=torch.float32, device=x.device).expand(C, flt.m))
+    y = _lfilter_core(flt, xf, z_init).to(x.dtype)
+    return y[:, 0] if squeeze else y
+
+
+def _default_padlen(b, a) -> int:
+    return 3 * max(len(np.atleast_1d(a)), len(np.atleast_1d(b)))
+
+
+def filtfilt(b, a, x: torch.Tensor, padlen: Optional[int] = None) -> torch.Tensor:
+    """Zero-phase filtering of axis 0 of ``x`` ((T,) or (T, C)) with
+    scipy.signal.filtfilt's defaults (method 'pad', padtype 'odd'): the
+    odd extension, a forward pass from ``zi * ext[0]``, then the same over
+    the reversed output. Computed in float32, returned at x's dtype."""
+    flt = device_filter(_key(b), _key(a), x.device)
+    p = _default_padlen(b, a) if padlen is None else padlen
+    squeeze = x.dim() == 1
+    xf = (x[:, None] if squeeze else x).to(torch.float32)
+    T = xf.shape[0]
+    if T <= p:
+        raise ValueError(f"input length {T} must exceed padlen {p}")
+    left = 2.0 * xf[0] - xf[1 : p + 1].flip(0)
+    right = 2.0 * xf[-1] - xf[T - p - 1 : T - 1].flip(0)
+    y = torch.cat([left, xf, right], dim=0)
+    for _ in range(2):  # forward, then backward over the reversed output
+        y = _lfilter_core(flt, y, flt.zi[None, :] * y[0][:, None]).flip(0)
+    y = y[p : p + T].to(x.dtype)
+    return y[:, 0] if squeeze else y
+
+
 def filtfilt_masked(b, a, x: torch.Tensor, n) -> torch.Tensor:
     """filtfilt over the first ``n`` rows of a fixed-size (T_max, C) float32
     buffer, with scipy's defaults (odd extension, padlen 3*max(len(a), len(b))).
@@ -203,17 +246,23 @@ def filtfilt_masked(b, a, x: torch.Tensor, n) -> torch.Tensor:
 # The reference front-end's specific chains
 # ---------------------------------------------------------------------------
 
-def remove_drift(x: torch.Tensor, fs: float, n) -> torch.Tensor:
-    """3rd-order 2 Hz high-pass, zero-phase (reference read_emg.py:32-34)."""
-    return filtfilt_masked(*design_highpass(3, 2.0, fs), x, n)
+def remove_drift(x: torch.Tensor, fs: float = 1000.0, n=None) -> torch.Tensor:
+    """3rd-order 2 Hz high-pass, zero-phase (reference read_emg.py:32-34),
+    over the first ``n`` rows (``filtfilt_masked``) or, with ``n`` None,
+    the whole length (``filtfilt``)."""
+    b, a = design_highpass(3, 2.0, fs)
+    return filtfilt(b, a, x) if n is None else filtfilt_masked(b, a, x, n)
 
 
-def notch(x: torch.Tensor, freq: float, fs: float, n) -> torch.Tensor:
-    """Q=30 notch, zero-phase (reference read_emg.py:36-38)."""
-    return filtfilt_masked(*design_notch(freq, 30.0, fs), x, n)
+def notch(x: torch.Tensor, freq: float, fs: float = 1000.0, n=None) -> torch.Tensor:
+    """Q=30 notch, zero-phase (reference read_emg.py:36-38); ``n`` as in
+    ``remove_drift``."""
+    b, a = design_notch(freq, 30.0, fs)
+    return filtfilt(b, a, x) if n is None else filtfilt_masked(b, a, x, n)
 
 
-def notch_harmonics(x: torch.Tensor, freq: float, fs: float, n) -> torch.Tensor:
+def notch_harmonics(x: torch.Tensor, freq: float = 60.0, fs: float = 1000.0,
+                    n=None) -> torch.Tensor:
     """Notch at harmonics 1..7 of ``freq`` (reference read_emg.py:40-43)."""
     for harmonic in range(1, 8):
         x = notch(x, freq * harmonic, fs, n=n)

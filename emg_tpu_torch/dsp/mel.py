@@ -1,9 +1,11 @@
-"""Log-mel spectrogram front-end for the audio stream (host, numpy).
+"""Log-mel spectrogram front-end for the audio stream.
 
 Matches the reference's mel_spectrogram (data_utils.py:46-69): reflect pad
 by (n_fft - hop)/2, periodic-Hann STFT with center=False, magnitude
 sqrt(re^2 + im^2 + 1e-9), Slaney-normalized mel filterbank (librosa
 defaults: htk=False, norm='slaney'), then log(clamp(x, 1e-5)).
+``mel_spectrogram`` runs on the signal's device; ``mel_spectrogram_np``,
+its numpy twin, is what the host loader (``dsp/audio_io.py``) calls.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def _hz_to_mel(f: np.ndarray) -> np.ndarray:
@@ -67,6 +70,30 @@ def _hann_periodic(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def mel_spectrogram(
+    y: torch.Tensor,
+    n_fft: int = 1024,
+    num_mels: int = 80,
+    sampling_rate: int = 22050,
+    hop_size: int = 256,
+    win_size: int = 1024,
+    fmin: float = 0.0,
+    fmax: float = 8000.0,
+) -> torch.Tensor:
+    """(T,) float32 audio -> (frames, num_mels) log-mel features, on y's
+    device."""
+    pad = (n_fft - hop_size) // 2
+    # reflect padding (torch 'reflect' excludes the edge sample)
+    y = torch.cat([y[1 : pad + 1].flip(0), y, y[-pad - 1 : -1].flip(0)])
+    frames = y.unfold(0, n_fft, hop_size)  # (frames, n_fft)
+    window = torch.as_tensor(_hann_periodic(win_size), device=y.device)
+    spec = torch.fft.rfft(frames * window, n=n_fft, dim=1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    basis = torch.as_tensor(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax),
+                            device=y.device)
+    return torch.log(torch.clamp(mag @ basis.t(), min=1e-5))
+
+
 def mel_spectrogram_np(
     y: np.ndarray,
     n_fft: int = 1024,
@@ -89,3 +116,8 @@ def mel_spectrogram_np(
     mel = mag @ mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax).T
     return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
 
+
+def mel_frame_count(n_samples: int, n_fft: int = 1024, hop_size: int = 256) -> int:
+    """The number of frames ``mel_spectrogram`` gives ``n_samples``."""
+    padded = n_samples + 2 * ((n_fft - hop_size) // 2)
+    return 1 + (padded - n_fft) // hop_size

@@ -6,18 +6,21 @@ notches + drift high-pass over the neighbor-extended signal, context strip,
 dual-rate resample (689.06 Hz raw path, 516.79 Hz feature path), and
 112-dim featurization, over a fixed bucket-length buffer with ``n_total``
 valid rows (``preprocess_emg``), or over a batch of such buffers with
-per-utterance lengths (``preprocess_emg_batched``).
+per-utterance lengths (``preprocess_emg_batched``); ``preprocess_emg_host``
+wraps it for one exact-length utterance given as numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from emg_tpu_torch.dsp import filters
 from emg_tpu_torch.dsp.features import get_emg_features_masked
 from emg_tpu_torch.dsp.resample import subsample_masked
+from emg_tpu_torch.runtime import resolve_device
 
 RAW_RATE = 689.06
 FEAT_RATE = 516.79
@@ -136,3 +139,28 @@ def align_lengths(n_frames: int):
     """The reference's post-featurization alignment (read_emg.py:88-93):
     emg keeps rows [6, 6+6*F), emg_orig keeps rows [8, 8+8*F)."""
     return (6, 6 * n_frames), (8, 8 * n_frames)
+
+
+def preprocess_emg_host(
+    raw_emg: np.ndarray,
+    before: np.ndarray,
+    after: np.ndarray,
+    remove_channels=(),
+    max_frames: Optional[int] = None,
+    device="cuda",
+):
+    """Exact-length (not bucketed) use: one utterance and its neighbor
+    context, (T, C) numpy arrays, through ``preprocess_emg`` on ``device``
+    (the card unless the CPU is asked for). Returns (emg_features, emg,
+    emg_orig) with the reference's slicing and frame alignment
+    (``align_lengths``), as float32 numpy arrays; ``max_frames`` caps the
+    frames."""
+    x = np.concatenate([before, raw_emg, after], axis=0).astype(np.float32)
+    out = preprocess_emg(torch.as_tensor(x, device=resolve_device(device)), x.shape[0],
+                         before.shape[0], after.shape[0], tuple(remove_channels))
+    F = int(out.n_frames)
+    if max_frames is not None:
+        F = min(F, max_frames)
+    (e0, elen), (r0, rlen) = align_lengths(F)
+    return (out.emg_features[:F].cpu().numpy(), out.emg[e0 : e0 + elen].cpu().numpy(),
+            out.emg_orig[r0 : r0 + rlen].cpu().numpy().astype(np.float32))

@@ -1,4 +1,4 @@
-"""Parallel diagonal linear recurrence (the plain version of the IIR scan).
+"""Parallel linear recurrences (the plain version of the IIR scan).
 
 The DSP front-end's IIR filters run in each filter's eigenbasis as the
 complex diagonal recurrence ``w[t] = lam * w[t-1] + u[t]`` (see
@@ -7,12 +7,69 @@ Hillis-Steele doubling scan of complex affine maps along the last axis, in
 split real/imaginary float32 arithmetic: log2(T) shift-and-combine passes
 of elementwise ops. It is the counterpart of
 ``emg_tpu/dsp/recurrence.py::_hillis_steele_affine_last`` and the plain
-PyTorch version that ``ops/iir_scan.py`` holds its CUDA kernel against.
+PyTorch version that ``ops/iir_scan.py`` holds its CUDA kernel against
+(``diagonal_recurrence_plain``).
+
+The JAX package's public forms are here too, as plain tensor code on the
+inputs' device: ``linear_recurrence`` (a general (m, m) transition),
+``diagonal_recurrence`` (time-major complex) and
+``diagonal_recurrence_tlast`` (time in the last axis).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
+
+
+def linear_recurrence(A: torch.Tensor, u: torch.Tensor, z_init: torch.Tensor) -> torch.Tensor:
+    """Run z[t] = A @ z[t-1] + u[t] for t = 0..T-1 in parallel.
+
+    A: (m, m) constant transition matrix; u: (T, m) per-step inputs;
+    z_init: (m,) initial state z[-1]. Returns the (T, m) states z[0..T-1].
+    A Hillis-Steele doubling scan of the affine maps z -> A z + u[t], the
+    matrix products at the inputs' full precision.
+    """
+    T, m = u.shape
+    P = A.expand(T, m, m)
+    B = u
+    s = 1
+    while s < T:
+        # compose with the cumulative map at t-s (the identity shifts in)
+        P_prev = torch.cat([torch.eye(m, dtype=A.dtype, device=A.device).expand(s, m, m),
+                            P[: T - s]])
+        B_prev = F.pad(B, (0, 0, s, 0))[:T]
+        B = torch.einsum("tij,tj->ti", P, B_prev) + B
+        P = torch.matmul(P, P_prev)
+        s *= 2
+    return torch.einsum("tij,j->ti", P, z_init) + B
+
+
+def diagonal_recurrence(lam: torch.Tensor, u: torch.Tensor, w_init: torch.Tensor) -> torch.Tensor:
+    """Run w[t] = lam * w[t-1] + u[t] (elementwise, complex) in parallel.
+
+    lam: (m,) complex eigenvalues, |lam| < 1; u: (T, m) complex per-step
+    inputs; w_init: (m,) complex initial state w[-1]. Returns the (T, m)
+    complex states w[0..T-1].
+    """
+    return diagonal_recurrence_tlast(lam, u.t()[None], w_init[None])[0].t()
+
+
+def diagonal_recurrence_tlast(lam: torch.Tensor, u: torch.Tensor,
+                              w_init: torch.Tensor) -> torch.Tensor:
+    """The diagonal recurrence batched, with time in the last axis.
+
+    lam: (m,) complex eigenvalues; u: (C, m, T) complex per-step inputs;
+    w_init: (C, m) complex initial states. Returns the (C, m, T) complex
+    states, computed in split real/imaginary arithmetic
+    (``hillis_steele_affine_last``).
+    """
+    C, m, T = u.shape
+    lr = lam.real[None, :, None].expand(C, m, T)
+    li = lam.imag[None, :, None].expand(C, m, T)
+    pr, pi, br, bi = hillis_steele_affine_last(lr, li, u.real, u.imag)
+    wr0, wi0 = w_init.real[:, :, None], w_init.imag[:, :, None]
+    return torch.complex(pr * wr0 - pi * wi0 + br, pr * wi0 + pi * wr0 + bi)
 
 
 def hillis_steele_affine_last(pr, pi, br, bi, reverse: bool = False):

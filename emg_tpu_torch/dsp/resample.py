@@ -34,6 +34,13 @@ def _grid(T: int, new_freq: float, old_freq: float, device: torch.device):
     return torch.as_tensor(i0, device=device), torch.as_tensor(frac, device=device)
 
 
+def subsample(x: torch.Tensor, new_freq: float, old_freq: float) -> torch.Tensor:
+    """Resample axis 0 of ``x`` ((T,) or (T, C)) by linear interpolation,
+    at the exact length (``subsample_length``): the masked form with every
+    row valid."""
+    return subsample_masked(x, x.shape[0], new_freq, old_freq)[0]
+
+
 def subsample_masked(x: torch.Tensor, n, new_freq: float, old_freq: float):
     """Resample axis 0 of a fixed (T_max, ...) buffer as if the signal were
     x[:n]. Returns (out, out_len); rows of ``out`` at or beyond ``out_len``

@@ -83,11 +83,13 @@ class MaskedBatchNorm(nn.Module):
 
 
 def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """Conv at the activation dtype; the parameters stay float32."""
-    return F.conv1d(
-        x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-        stride=conv.stride, padding=conv.padding,
-    )
+    """Conv at the activation dtype; the parameters stay float32, cast at
+    use. The bias is added to the conv's output after it is rounded to the
+    activation dtype, as Flax's ``nn.Conv(dtype=...)`` adds it: at bfloat16
+    a bias folded into the conv (the CPU's oneDNN does so) would round once
+    where the JAX package rounds twice."""
+    y = F.conv1d(x, conv.weight.to(x.dtype), None, stride=conv.stride, padding=conv.padding)
+    return y + conv.bias.to(x.dtype)[:, None]
 
 
 class ResBlock(nn.Module):

@@ -51,15 +51,18 @@ def _check(lp, targets, input_lengths, target_lengths, blank):
 
 
 def _cuda_args(lp, targets, input_lengths, target_lengths):
+    if lp.dtype != torch.float32:
+        # the step hands over float32 log-probs at every compute dtype
+        raise TypeError(f"the ctc kernels take float32 log-probs, not {lp.dtype}")
     if lp.device.type != "cuda":
         raise ValueError(f"the ctc kernels run on cuda, not {lp.device}")
-    return (lp.float().contiguous(), targets.to(torch.int64).contiguous(),
+    return (lp.contiguous(), targets.to(torch.int64).contiguous(),
             input_lengths.to(torch.int64).contiguous(), target_lengths.to(torch.int64).contiguous())
 
 
 def ctc_forward(lp, targets, input_lengths, target_lengths, blank: int = BLANK_ID):
     """(nll (B,), alpha (B, T, 2S+1)), float32: launches
-    ``ctc_alpha_kernel`` on CUDA tensors or raises."""
+    ``ctc_alpha_kernel`` on CUDA tensors (``lp`` float32) or raises."""
     _check(lp, targets, input_lengths, target_lengths, blank)
     lp, targets, il, tl = _cuda_args(lp, targets, input_lengths, target_lengths)
     B, T, C = lp.shape

@@ -178,9 +178,15 @@ def test_train_mode_batchnorm_matches_jax():
 
 
 def test_bf16_serving_tracks_float32(models):
-    """bfloat16 serving (parameters float32, cast at use) stays near the
-    float32 encoder on valid rows: a bound on bf16 rounding, 5e-2."""
-    _, _, tm = models
+    """bfloat16 serving (parameters float32, cast at use) rounds as the JAX
+    package's bfloat16 encoder: on valid rows it stays within 5e-2 of
+    JAX's bfloat16 memory (a bound on bf16 rounding), and no farther from
+    the float32 encoder than JAX's bfloat16 memory is. On these perturbed
+    weights neither lies within 5e-2 of float32 everywhere: each conv's
+    bias is added after its output is rounded to bf16, as Flax's
+    ``nn.Conv(dtype=bfloat16)`` adds it (0.072 from float32 at worst, JAX's
+    0.092)."""
+    jm, variables, tm = models
     packed, n_rows, offsets, lengths, _ = example()
     args = (torch.tensor(packed), n_rows, torch.tensor(offsets, dtype=torch.int64),
             torch.tensor(lengths, dtype=torch.int64), 16)
@@ -190,5 +196,13 @@ def test_bf16_serving_tracks_float32(models):
         m32, _, mask = tm.encode(*args)
         m16, _, _ = bf.eval().encode(*args)
     assert m16.dtype == torch.float32
-    valid = ~mask
-    np.testing.assert_allclose(m16[valid].numpy(), m32[valid].numpy(), atol=5e-2, rtol=5e-2)
+    valid = (~mask).numpy()
+    jbf = JaxEMGModel(dataclasses.replace(jm.cfg, compute_dtype="bfloat16"))
+    j16, _, _ = jbf.apply(variables, packed, n_rows, offsets, lengths, 16, train=False,
+                          method=jbf.encode)
+    j32, _, _ = jm.apply(variables, packed, n_rows, offsets, lengths, 16, train=False,
+                         method=jm.encode)
+    j16, j32 = np.asarray(j16)[valid], np.asarray(j32)[valid]
+    m16, m32 = m16.numpy()[valid], m32.numpy()[valid]
+    np.testing.assert_allclose(m16, j16, atol=5e-2, rtol=5e-2)
+    assert np.abs(m16 - m32).max() <= np.abs(j16 - j32).max()
