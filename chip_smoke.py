@@ -43,13 +43,19 @@ Phases, in order; any failure exits non-zero:
      reference's max_batch_length, with the five kernels' launch counts over
      that run alone, its epochs' wall time, frames per second and peak
      memory; then greedy evaluation of the model.pt it wrote; the same run
-     again with a synchronization between forward, backward and optimizer
-     for their split; kernels 3-5 against their plain versions at every
-     shape the run launched them with, timed;
+     again, every microbatch its own step, its steps under torch.profiler
+     with the port's spans recording, for their split: each phase's host
+     issue ms (stage, forward, backward, optimizer) from the spans and its
+     device ms from the profiler (the split no longer synchronizes);
+     kernels 3-5 against their plain versions at every shape the run
+     launched them with, timed;
   8. one float32 train step (the run's largest microbatch) with the kernels
      and with their plain versions, from the same weights, batch and
      generator seeds (dropout 0.2): losses and every parameter gradient
-     agree; its unprofiled wall time and a torch.profiler trace of it;
+     agree; its unprofiled wall time and a torch.profiler trace of it; one
+     more step with its spans recording under CUDA's sync debug mode: the
+     step's ``host_syncs`` against the mode's warnings, each warning's
+     source line (a sync the count misses is reported, not failed);
   9. beam serving at full width: an order-3 ARPA trained by the port's
      lm_train on the corpus's sentences; the beam evaluation through the
      CLI at its defaults (bfloat16, W = 100, the device beam, 8 utterances
@@ -154,7 +160,7 @@ Phases, in order; any failure exits non-zero:
      single call), host reads of a warm batched call (0), K1 at the batched
      call's (R, T) against its plain version; batched against singles,
      warm, by CUDA events; a trace through the port's utils.profiling
-     (profile_trace with an annotate region, which the trace file must
+     (profile_trace with a span region, which the trace file must
      hold with K1's kernel): busy ms and kernels; then a headless
      RecordingSession on a 1000 Hz synthetic board (a silence clip and 3
      utterances of ~2 s, in real time), clean_directory, and EMGDataset on
@@ -1518,11 +1524,117 @@ def recording_shapes(shapes: set):
     return mock.patch.object(attention_module, "flash_attention_relpos_train", record)
 
 
+STEP_PHASES = ("step.stage", "step.forward", "step.backward", "step.optimizer")
+
+
+class TrainingProfiler:
+    """torch.profiler (host and card) over the train steps of a CLI
+    training run, whose spans (``utils/profiling.py``) record while it runs:
+    each stretch of steps between two evaluation passes or PER reports is
+    one profiler session, opened by the step that starts it and closed
+    before the pass, whose decode graphs are captured with no profiler
+    running. Nothing in a step synchronizes; a session's close waits for
+    the card, where the pass after it would wait anyway."""
+
+    def __init__(self):
+        self.open, self.sessions = None, []
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.open is None:
+            self.open = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.open.__enter__()
+
+    def stop(self):
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.sessions.append(self.open)
+            self.open = None
+
+    @contextlib.contextmanager
+    def over_steps(self):
+        """Patches the trainer for the block: its step opens a session, its
+        evaluation passes and PER reports close one."""
+        from emg_tpu_torch.train import trainer as trainer_module
+        from emg_tpu_torch.utils import profiling
+
+        real_make = trainer_module.make_train_step
+
+        def make(cfg):
+            step = real_make(cfg)
+
+            def profiled_step(*args):
+                self.start()
+                return step(*args)
+            return profiled_step
+
+        def closing(name):
+            real = getattr(trainer_module.Trainer, name)
+
+            def run(trainer, *args, **kwargs):
+                self.stop()
+                return real(trainer, *args, **kwargs)
+            return mock.patch.object(trainer_module.Trainer, name, run)
+
+        profiling.clear()
+        try:
+            with mock.patch.object(trainer_module, "make_train_step", make), \
+                    closing("evaluation_loop"), closing("report_PER"):
+                yield self
+        finally:
+            self.stop()
+
+    def steps(self) -> list:
+        """Each step, in order: its attributes (examples, frames, frame
+        bucket, applied), its ``sync`` spans, and per phase the host's ms
+        issuing it (its span less the waits inside) and the device ms of
+        the kernels and copies it issued: those of the operations inside
+        the profiler's region of the same name, and of the operations other
+        threads ran meanwhile (autograd runs the backward on its own)."""
+        from torch.autograd import DeviceType
+
+        from emg_tpu_torch.utils import profiling
+
+        device = {}
+        for prof in self.sessions:
+            host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+            top = [e for e in host if e.cpu_parent is None]
+            for r in host:
+                if r.name not in ("step",) + STEP_PHASES:
+                    continue
+                start, end = r.time_range.start, r.time_range.end
+                us = r.device_time_total + sum(
+                    e.device_time_total for e in top if e.thread != r.thread
+                    and start <= e.time_range.start and e.time_range.end <= end)
+                device.setdefault(r.name, []).append(us / 1e3)
+        device = {name: iter(ms) for name, ms in device.items()}
+        rec = profiling.recorded()
+        profiling.clear()
+        rows = []
+        for st in (s for s in rec.spans if s.name == "step"):
+            row = dict(st.attrs, host_ms=st.duration_ns / 1e6, device_ms=next(device["step"]),
+                       syncs=0)
+            for phase in rec.children(st):
+                waits = [c for c in rec.children(phase) if c.name == "sync"]
+                row["syncs"] += len(waits)
+                row[phase.name] = dict(
+                    host_ms=(phase.duration_ns - sum(c.duration_ns for c in waits)) / 1e6,
+                    device_ms=next(device[phase.name]))
+            rows.append(row)
+        leftover = {name: len(list(ms)) for name, ms in device.items()}
+        if any(leftover.values()):
+            raise AssertionError(f"the profiler holds step regions no span matches: {leftover}")
+        return rows
+
+
 def train_through_cli(argv, root, record):
     """Train through the CLI's train mode, then serve the model.pt it wrote;
-    train again with the step's phases synchronized for their split.
-    Returns the launch counts of the first run, the (B, T, dtype, rate)
-    set it gave kernels 3-5 and the (B, T, S) set it gave the CTC kernels."""
+    train again, each microbatch its own step, under ``TrainingProfiler``
+    for the steps' split: host issue ms by phase from the spans, device ms
+    by phase from the profiler (the split synchronizes nothing). Returns
+    the launch counts of the first run, the (B, T, dtype, rate) set it gave
+    kernels 3-5 and the (B, T, S) set it gave the CTC kernels."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
@@ -1544,13 +1656,15 @@ def train_through_cli(argv, root, record):
     peak = torch.cuda.max_memory_allocated()
     logging.getLogger().handlers.clear()
 
-    # run 2: the same run (same batches, seeds and masks), each step's
-    # forward, backward and optimizer synchronized and timed
-    step_times = []
-    with mock.patch.object(Trainer, "step_times", step_times):
-        timed_trainer = cli.main(argv + TRAIN_ARGS + ["--device", DEVICE, "--output_directory",
-                                                      os.path.join(root, "train_timed")])
+    # run 2: the same run (same batches, seeds and masks), every microbatch
+    # through the step (no window graphs), its steps profiled
+    profiler = TrainingProfiler()
+    with profiler.over_steps():
+        timed_trainer = cli.main(argv + TRAIN_ARGS + [
+            "--train.fused_window", "false", "--device", DEVICE,
+            "--output_directory", os.path.join(root, "train_timed")])
     logging.getLogger().handlers.clear()
+    steps = profiler.steps()
 
     latest = torch.load(os.path.join(out, "latest"), map_location="cpu", weights_only=True)
     tags = set()
@@ -1559,7 +1673,7 @@ def train_through_cli(argv, root, record):
             tags.update(json.loads(line)["tag"] for line in f)
     losses = trainer.train_losses
     n = len(losses)
-    frames = sum(s["frames"] for s in step_times)
+    frames = sum(st["frames"] for st in steps)
     epochs_s = sum(trainer.epoch_seconds)
     # each epoch's train loop: its wall less its evaluation passes and PER
     # report (every epoch covers the whole training split: frames / epochs)
@@ -1570,12 +1684,12 @@ def train_through_cli(argv, root, record):
     # first meets each shape cold: allocations, cuDNN's plans, AdamW's
     # moments on the first apply)
     per_shape = {}
-    for i, st in enumerate(step_times):
+    for i, st in enumerate(steps):
         key = f"{st['examples']}x{st['max_frames']}"
         per_shape.setdefault(key, {"frames": st["frames"], "warm": []})
-        if i >= len(step_times) // len(trainer.epoch_seconds):
-            per_shape[key]["warm"].append({k: st[k] for k in ("forward", "backward", "optimizer",
-                                                              "applied")})
+        if i >= len(steps) // len(trainer.epoch_seconds):
+            per_shape[key]["warm"].append({k: st[k] for k in ("applied",) + STEP_PHASES
+                                           if k in st})
     result = dict(
         microbatches=n, updates=int(latest["updates"]), losses=losses, launches=launches,
         cli_wall_s=wall, peak_mem_bytes=peak, epoch_seconds=trainer.epoch_seconds,
@@ -1588,21 +1702,20 @@ def train_through_cli(argv, root, record):
         frames_per_s_train_loop=frames / sum(loop_by_epoch),
         frames_per_s_epochs=frames / epochs_s,
         frames_per_s_train_loop_by_epoch=[epoch_frames / t for t in loop_by_epoch],
-        # the same frames over the synchronized steps' time alone (run 2)
-        frames_per_s_steps=frames / sum(s["forward"] + s["backward"] + s["optimizer"]
-                                        for s in step_times) * 1e3,
-        timed_run_epoch_seconds=timed_trainer.epoch_seconds,
-        ms_by_shape=per_shape, steps=step_times, metric_tags=sorted(tags),
+        # the same frames over the steps' device time alone (run 2)
+        frames_per_s_step_device=frames / sum(st["device_ms"] for st in steps) * 1e3,
+        profiled_run_epoch_seconds=timed_trainer.epoch_seconds,
+        ms_by_shape=per_shape, steps=steps, metric_tags=sorted(tags),
         attention_shapes=sorted(shapes))
     log(f"training {json.dumps(result)}")
-    if not (n >= 4 and result["updates"] >= 2 and len(step_times) == n):
+    if not (n >= 4 and result["updates"] >= 2 and len(steps) == n):
         raise AssertionError(f"training ran {n} microbatches and {result['updates']} updates")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"training losses are not {n} finite values: {losses}")
     # the same run: its losses differ only by d_used's atomics and cuDNN's
     # summation order, which move the weights at ~1e-6 from the first apply
     if not np.allclose(timed_trainer.train_losses, losses, rtol=1e-3, atol=0):
-        raise AssertionError(f"the timed run's losses differ from the first run's: "
+        raise AssertionError(f"the profiled run's losses differ from the first run's: "
                              f"{timed_trainer.train_losses} vs {losses}")
     if not all(c > 0 for c in launches.values()):
         raise AssertionError(f"a kernel of the training path was never launched: {launches}")
@@ -1643,7 +1756,7 @@ def device_events(prof, after: str = None) -> list:
     only those that start after the last event whose name holds it ends."""
     from torch.autograd import DeviceType
 
-    # an annotate() region shows on the device's timeline too: not work
+    # a span's region shows on the device's timeline too: not work
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     if after is not None:
@@ -1718,6 +1831,40 @@ def largest_batch(cfg, multiple: int = 1):
     return idxs, pb, bucket_up(max(batch["lengths"]), FRAME_BUCKETS)
 
 
+def step_syncs(step, state, pb, max_frames) -> dict:
+    """One train step with its spans recording, under CUDA's sync debug
+    mode (a warning at each operation that waits for the card): the step's
+    ``host_syncs`` count against the warnings, and the source line each
+    warning names, so a sync the count misses shows where it is."""
+    import warnings
+
+    from emg_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profiling.recording(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, pb, max_frames, torch.Generator(device=DEVICE))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rec = profiling.recorded()
+    profiling.clear()
+    warned = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    at = {}
+    for w in warned:
+        key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        at[key] = at.get(key, 0) + 1
+    result = dict(host_syncs=rec.counts.get("host_syncs", 0), sync_warnings=len(warned),
+                  sync_spans=sum(s.name == "sync" for s in rec.spans), warned_at=at)
+    log(f"train step syncs {json.dumps(result)}")
+    if result["host_syncs"] > len(warned) or result["sync_spans"] != result["host_syncs"]:
+        raise AssertionError(f"host_syncs counts calls that do not wait for the card: {result}")
+    return result
+
+
 def train_step_kernels_vs_plain(argv, record):
     """One float32 train step of the flagship (dropout 0.2) from the same
     weights, batch and generator seeds, with the kernels and with their
@@ -1753,6 +1900,7 @@ def train_step_kernels_vs_plain(argv, record):
     gk, gk2, gp = ({name: p.grad.detach().clone() for name, p in st.model.named_parameters()}
                    for st in states)
     record["train_step_profile"] = profile_step(lambda: one_step(states[0], plain=False))
+    record["train_step_syncs"] = step_syncs(step, states[0], pb, max_frames)
     mk, mp = runs[0][0], runs[2][0]
     losses = {k: (float(mk[k]), float(mp[k])) for k in ("loss", "dec_loss", "enc_loss")}
     largest = max(float(g.abs().max()) for g in gp.values())
@@ -1848,8 +1996,9 @@ def attention_ms(B, T, D, H, maxpos, use_flash: bool, rate: float, key_pads_only
 
 
 def recipe_train(args, out, record, key):
-    """Train through the CLI's train mode with ``args`` (step phases
-    synchronized, for the frames they count), the five kernels' launches
+    """Train through the CLI's train mode with ``args``, every microbatch
+    its own step (no window graphs), under ``TrainingProfiler`` for the
+    frames the steps count and their split, the five kernels' launches
     counted over the run alone. Returns (the Trainer, its result dict)."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
@@ -1858,17 +2007,20 @@ def recipe_train(args, out, record, key):
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    step_times, eval_s, per_s = [], [], []
+    eval_s, per_s = [], []
+    profiler = TrainingProfiler()
     t0 = time.perf_counter()
-    with mock.patch.object(Trainer, "step_times", step_times), \
-            timed_method(Trainer, "evaluation_loop", eval_s), timed_method(Trainer, "report_PER", per_s):
-        trainer = cli.main(args + ["--device", DEVICE, "--output_directory", out])
+    with timed_method(Trainer, "evaluation_loop", eval_s), \
+            timed_method(Trainer, "report_PER", per_s), profiler.over_steps():
+        trainer = cli.main(args + ["--train.fused_window", "false", "--device", DEVICE,
+                                   "--output_directory", out])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     logging.getLogger().handlers.clear()
+    steps = profiler.steps()
     latest = torch.load(os.path.join(out, "latest"), map_location="cpu", weights_only=True)
     losses = trainer.train_losses
-    frames = sum(st["frames"] for st in step_times)
+    frames = sum(st["frames"] for st in steps)
     loop_s = sum(trainer.epoch_seconds) - sum(t for _, t in eval_s + per_s)
     result = dict(
         microbatches=len(losses), updates=int(latest["updates"]), losses=losses,
@@ -1876,12 +2028,11 @@ def recipe_train(args, out, record, key):
         cli_wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated(),
         epoch_seconds=trainer.epoch_seconds, frames=frames,
         # all frames over the train loops' wall (each epoch less its
-        # evaluation pass and PER report), and over the synchronized steps
+        # evaluation pass and PER report; the profiler's host cost in it),
+        # and over the steps' device time
         frames_per_s_train_loop=frames / loop_s,
-        frames_per_s_steps=frames / sum(st["forward"] + st["backward"] + st["optimizer"]
-                                        for st in step_times) * 1e3,
-        ms_by_step=[{k: st[k] for k in ("examples", "max_frames", "forward", "backward",
-                                         "optimizer")} for st in step_times],
+        frames_per_s_step_device=frames / sum(st["device_ms"] for st in steps) * 1e3,
+        ms_by_step=steps,
         config={k: getattr(trainer.config.train, k) for k in (
             "electrode_rotation_prob", "channel_drop_prob", "time_drop_prob",
             "scheduled_sampling_max_prob", "scheduled_sampling_ramp")}
@@ -1889,7 +2040,7 @@ def recipe_train(args, out, record, key):
            "num_layers_encoder": trainer.config.model.num_layers_encoder})
     record[key] = result
     log(f"{key} {json.dumps(result)}")
-    if not (len(losses) >= 4 and result["updates"] >= 2 and len(step_times) == len(losses)):
+    if not (len(losses) >= 4 and result["updates"] >= 2 and len(steps) == len(losses)):
         raise AssertionError(f"{key} ran {len(losses)} microbatches and {result['updates']} updates")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{key}: the losses are not finite: {losses}")
@@ -3614,10 +3765,10 @@ def dsp_batched(root, record) -> dict:
     preprocess_emg calls (DSP_TOL); K1's launches (batched and one single
     call), host reads of a warm batched call (0), K1 at the batched call's
     (R, T) against its plain version, the warm times, and a trace through
-    the port's profile_trace with an annotate("dsp_batched") region."""
+    the port's profile_trace with a span("dsp_batched") region."""
     from emg_tpu_torch.dsp.pipeline import preprocess_emg, preprocess_emg_batched
     from emg_tpu_torch.ops.iir_scan import iir_scan, iir_scan_plain
-    from emg_tpu_torch.utils.profiling import annotate, profile_trace
+    from emg_tpu_torch.utils.profiling import profile_trace, span
 
     xs_np, n_np = bench_utterances()
     U = len(n_np)
@@ -3665,10 +3816,10 @@ def dsp_batched(root, record) -> dict:
             batched()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            with annotate("dsp_batched"):
+            with span("dsp_batched"):
                 batched()
             torch.cuda.synchronize()
-    by_name, span, kernels = device_work(prof, "preprocess_emg_batched", after="spin_kernel")
+    by_name, device_span, kernels = device_work(prof, "preprocess_emg_batched", after="spin_kernel")
     busy = sum(by_name.values())
     with open(prof.trace_path) as f:
         trace = f.read()
@@ -3681,7 +3832,7 @@ def dsp_batched(root, record) -> dict:
         k1_launches=launches, k1_shapes=k1_shapes, host_reads=reads, host_reads_call_ms=reads_ms,
         vs_plain=vs_plain, vs_single=vs_single, bitwise_single=bitwise, **times,
         batched_vs_singles=times["singles_event_ms"] / times["batched_event_ms"],
-        profile=dict(device_busy_ms=busy, device_span_ms=span, device_kernels=kernels,
+        profile=dict(device_busy_ms=busy, device_span_ms=device_span, device_kernels=kernels,
                      traced_k1=traced_k1, trace_file_bytes=len(trace),
                      iir_scan_ms=sum(ms for n, ms in by_name.items() if "iir_scan" in n),
                      longest=sorted(by_name.items(), key=lambda kv: -kv[1])[:5]),
@@ -3698,7 +3849,7 @@ def dsp_batched(root, record) -> dict:
     if reads != 0:
         raise AssertionError(f"a warm batched DSP call read the card {reads} times")
     if not ("dsp_batched" in trace and "iir_scan_kernel" in trace) or traced_k1 != launches["batched"]:
-        raise AssertionError(f"profile_trace's file lacks the annotated region or K1 "
+        raise AssertionError(f"profile_trace's file lacks the span's region or K1 "
                              f"({traced_k1} K1 kernels traced)")
     for row in result["k1_rows"]:
         if not row["rel_err"] <= K1_TOL or not row["bitwise_repeatable"]:

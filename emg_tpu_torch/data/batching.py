@@ -20,6 +20,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from emg_tpu_torch.utils.profiling import span
+
 PAD_VALUE = 42.0  # reference pads raw EMG with FLAGS.pad == 42
 
 # bucketed shapes (#packed rows, #utterances, max enc frames, max tgt len)
@@ -88,36 +90,37 @@ def make_packed_batch(
     evenly over its ranks (``parallel/mesh.py::shard_batch``), as in the
     JAX package.
     """
-    B = len(raw_emg)
-    rows = pack_raw_emg(raw_emg, chunk)
-    n_rows = rows.shape[0]
-    rows_b = _round_up(bucket_up(n_rows, ROW_BUCKETS), row_multiple)
-    if rows_b > n_rows:
-        pad_rows = np.full((rows_b - n_rows, chunk, rows.shape[2]), PAD_VALUE, rows.dtype)
-        rows = np.concatenate([rows, pad_rows], axis=0)
+    with span("data.pack"):
+        B = len(raw_emg)
+        rows = pack_raw_emg(raw_emg, chunk)
+        n_rows = rows.shape[0]
+        rows_b = _round_up(bucket_up(n_rows, ROW_BUCKETS), row_multiple)
+        if rows_b > n_rows:
+            pad_rows = np.full((rows_b - n_rows, chunk, rows.shape[2]), PAD_VALUE, rows.dtype)
+            rows = np.concatenate([rows, pad_rows], axis=0)
 
-    B_b = _round_up(bucket_up(B, BATCH_BUCKETS), batch_multiple)
-    lengths_arr = np.zeros(B_b, np.int32)
-    lengths_arr[:B] = lengths
-    offsets = np.concatenate([[0], np.cumsum(lengths_arr)[:-1]]).astype(np.int32)
+        B_b = _round_up(bucket_up(B, BATCH_BUCKETS), batch_multiple)
+        lengths_arr = np.zeros(B_b, np.int32)
+        lengths_arr[:B] = lengths
+        offsets = np.concatenate([[0], np.cumsum(lengths_arr)[:-1]]).astype(np.int32)
 
-    S = max(p.shape[0] for p in phonemes_int)
-    S_b = bucket_up(S, TARGET_BUCKETS)
-    targets = np.full((B_b, S_b), pad_id, np.int64)
-    tlens = np.zeros(B_b, np.int32)
-    for i, p in enumerate(phonemes_int):
-        targets[i, : p.shape[0]] = p
-        tlens[i] = p.shape[0]
+        S = max(p.shape[0] for p in phonemes_int)
+        S_b = bucket_up(S, TARGET_BUCKETS)
+        targets = np.full((B_b, S_b), pad_id, np.int64)
+        tlens = np.zeros(B_b, np.int32)
+        for i, p in enumerate(phonemes_int):
+            targets[i, : p.shape[0]] = p
+            tlens[i] = p.shape[0]
 
-    return PackedBatch(
-        packed_raw=rows.astype(np.float32),
-        n_rows=np.int32(n_rows),
-        lengths=lengths_arr,
-        offsets=offsets,
-        targets=targets,
-        target_lengths=tlens,
-        n_examples=np.int32(B),
-    )
+        return PackedBatch(
+            packed_raw=rows.astype(np.float32),
+            n_rows=np.int32(n_rows),
+            lengths=lengths_arr,
+            offsets=offsets,
+            targets=targets,
+            target_lengths=tlens,
+            n_examples=np.int32(B),
+        )
 
 
 # -- int16 staging ----------------------------------------------------------
@@ -137,10 +140,11 @@ def frame_bucket_for(lengths: Sequence[int]) -> int:
 
 def quantize_packed_raw(pb: PackedBatch) -> PackedBatch:
     """Host side: packed_raw float32 -> int16."""
-    if pb.packed_raw.dtype == np.int16:
-        return pb
-    q = np.clip(np.rint(np.asarray(pb.packed_raw) * RAW_INT16_SCALE), -32767, 32767)
-    return dataclasses.replace(pb, packed_raw=q.astype(np.int16))
+    with span("data.int16"):
+        if pb.packed_raw.dtype == np.int16:
+            return pb
+        q = np.clip(np.rint(np.asarray(pb.packed_raw) * RAW_INT16_SCALE), -32767, 32767)
+        return dataclasses.replace(pb, packed_raw=q.astype(np.int16))
 
 
 def dequantize_packed_raw(packed_raw: torch.Tensor) -> torch.Tensor:

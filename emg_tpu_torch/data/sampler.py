@@ -21,6 +21,8 @@ from typing import List, Optional
 import numpy as np
 from scipy.stats import lognorm
 
+from emg_tpu_torch.utils.profiling import span
+
 log = logging.getLogger(__name__)
 
 
@@ -103,32 +105,33 @@ class DynamicBatchSampler:
             raise NotImplementedError(self._batch_ordering)
 
     def _generate_batches(self):
-        if self._shuffle_ex:
-            rng = np.random.default_rng(self._seed + self._epoch)
-            sampler = rng.permutation(len(self._dataset)).tolist()
-        else:
-            sampler = range(len(self._dataset))
+        with span("data.sampler"):
+            if self._shuffle_ex:
+                rng = np.random.default_rng(self._seed + self._epoch)
+                sampler = rng.permutation(len(self._dataset)).tolist()
+            else:
+                sampler = range(len(self._dataset))
 
-        self._batches = []
-        bucket_batches = [[] for _ in self._bucket_lens]
-        for idx in sampler:
-            # skip textless clips (reference read_emg.py:288-289)
-            if not any(c in string.ascii_letters for c in self._texts[idx]):
-                continue
-            item_len = self._ex_lengths[str(idx)]
-            bucket_id = int(np.searchsorted(self._bucket_boundaries, item_len))
-            bucket_batches[bucket_id].append(idx)
-            if (
-                len(bucket_batches[bucket_id]) >= self._bucket_lens[bucket_id]
-                or len(bucket_batches[bucket_id]) >= self._max_batch_ex
-            ):
-                self._batches.append(bucket_batches[bucket_id])
-                bucket_batches[bucket_id] = []
-        if not self._drop_last:
-            for batch in bucket_batches:
-                if batch:
-                    self._batches.append(batch)
-        self._permute_batches()
+            self._batches = []
+            bucket_batches = [[] for _ in self._bucket_lens]
+            for idx in sampler:
+                # skip textless clips (reference read_emg.py:288-289)
+                if not any(c in string.ascii_letters for c in self._texts[idx]):
+                    continue
+                item_len = self._ex_lengths[str(idx)]
+                bucket_id = int(np.searchsorted(self._bucket_boundaries, item_len))
+                bucket_batches[bucket_id].append(idx)
+                if (
+                    len(bucket_batches[bucket_id]) >= self._bucket_lens[bucket_id]
+                    or len(bucket_batches[bucket_id]) >= self._max_batch_ex
+                ):
+                    self._batches.append(bucket_batches[bucket_id])
+                    bucket_batches[bucket_id] = []
+            if not self._drop_last:
+                for batch in bucket_batches:
+                    if batch:
+                        self._batches.append(batch)
+            self._permute_batches()
 
     def __iter__(self):
         yield from self._batches

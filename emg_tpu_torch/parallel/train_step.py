@@ -62,9 +62,8 @@ device LR (``train/state.py``), on every path.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -73,6 +72,7 @@ from emg_tpu_torch.data.batching import PackedBatch, dequantize_packed_raw
 from emg_tpu_torch.ops.ctc import ctc_loss
 from emg_tpu_torch.ops.losses import combined_loss, label_smoothing_loss
 from emg_tpu_torch.train.state import TrainState, warmup_lr
+from emg_tpu_torch.utils.profiling import count, span
 
 
 def step_seed(seed: int, microbatches: int) -> int:
@@ -299,32 +299,6 @@ def reported(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
     return {k: total[i] for i, k in enumerate(names)}
 
 
-class _Clock:
-    """Synchronized per-phase wall times of one step, in ms, when a list
-    to append them to is given; otherwise nothing (no syncs)."""
-
-    def __init__(self, sink: Optional[List[dict]], device):
-        self.sink, self.device, self.times = sink, device, {}
-        self._t = self._now()
-
-    def _now(self):
-        if self.sink is None:
-            return 0.0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, phase: str) -> None:
-        if self.sink is not None:
-            t = self._now()
-            self.times[phase] = (t - self._t) * 1e3
-            self._t = t
-
-    def close(self, **counts) -> None:
-        if self.sink is not None:
-            self.sink.append(dict(self.times, **counts))
-
-
 @dataclass
 class Schedule:
     """A microbatch's host-side values: the scheduled-sampling probability
@@ -374,69 +348,87 @@ def ss_prob_tensor(cfg, ss_prob: float, device) -> Optional[torch.Tensor]:
 
 def microbatch_body(state: TrainState, cfg, tensors: Dict[str, torch.Tensor],
                     host: Dict[str, object], max_frames: int, generator: torch.Generator,
-                    ss_prob: Optional[torch.Tensor], applied: bool,
-                    clock: Optional["_Clock"] = None) -> Dict[str, torch.Tensor]:
+                    ss_prob: Optional[torch.Tensor], applied: bool) -> Dict[str, torch.Tensor]:
     """One microbatch on the device, from staged tensors (``stage_batch``)
     and a generator seeded for it: the recipes' draws, forward and backward
     in train mode, the gradients added into the accumulated sums and, where
     ``applied``, AdamW's apply at the LR ``set_lr`` wrote. Returns the loss
     metrics as device tensors. Every value it reads is on the device or
     fixed by the batch's shapes and ``applied``, so a CUDA graph of it
-    replays for every batch of those shapes (``train/window.py``)."""
+    replays for every batch of those shapes (``train/window.py``). Its three
+    phases are spans (``step.forward``, ``step.backward``,
+    ``step.optimizer``) of the host's time issuing them."""
     model = state.model.train()
     mesh = model.mesh
-    dev = device_batch(tensors, host)
-    targets = dev["targets"]
-    draws = draw_recipe_randomness(generator, cfg, dev["packed_shape"], targets.shape[1] - 1,
-                                   dev["n_targets"], ss_prob)
-    draws = local_draws(draws, dev)
-    dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
-    tgt_in = None
-    if draws.ss_mix is not None:
-        tgt_in = scheduled_sampling_inputs(model, dev, max_frames, draws.ss_mix)
-    dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
-    loss = combined_loss(dec_loss, enc_loss, cfg.alpha_loss)
-    if clock is not None:
-        clock.mark("forward")
-    if mesh is None:
-        loss.backward()
-    else:
-        backward_on_mesh(model, loss)
-    if clock is not None:
-        clock.mark("backward")
+    with span("step.forward"):
+        dev = device_batch(tensors, host)
+        targets = dev["targets"]
+        draws = draw_recipe_randomness(generator, cfg, dev["packed_shape"], targets.shape[1] - 1,
+                                       dev["n_targets"], ss_prob)
+        draws = local_draws(draws, dev)
+        dev["packed_raw"] = augment_packed(dev["packed_raw"], draws)
+        tgt_in = None
+        if draws.ss_mix is not None:
+            tgt_in = scheduled_sampling_inputs(model, dev, max_frames, draws.ss_mix)
+        dec_loss, enc_loss = compute_losses(model, dev, max_frames, generator, tgt_in)
+        loss = combined_loss(dec_loss, enc_loss, cfg.alpha_loss)
+    with span("step.backward"):
+        if mesh is None:
+            loss.backward()
+        else:
+            backward_on_mesh(model, loss)
     if applied:
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=False)
+        with span("step.optimizer"):
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=False)
     return reported({"loss": loss.detach(), "dec_loss": dec_loss.detach(),
                      "enc_loss": enc_loss.detach()}, mesh)
 
 
-def make_train_step(cfg, step_times: Optional[List[dict]] = None):
+def copy_to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    """Staged CPU tensors on ``device``. A copy of pageable host memory to
+    a card blocks the host until the stream has run it: each is a ``sync``
+    span and counts in ``host_syncs``."""
+    if device.type != "cuda":
+        return {k: v.to(device) for k, v in tensors.items()}
+    out = {}
+    for k, v in tensors.items():
+        with span("sync") as s:
+            count("host_syncs")
+            out[k] = v.to(device)
+        if s is not None:
+            s.attrs["bytes"] = v.nbytes
+    return out
+
+
+def make_train_step(cfg):
     """The microbatch step: train(state, batch, max_frames, generator) ->
     metrics. It reseeds the generator for the microbatch, copies the batch
     to the device and runs ``microbatch_body``: forward and backward in
     train mode, the gradients added into the accumulated sums, and AdamW at
     the microbatch's warmup LR when the summed example count reaches
-    batch_size_grad. With ``step_times`` (a list), each step appends its
-    synchronized forward/backward/optimizer ms."""
+    batch_size_grad. The step is a ``step`` span of its microbatch (with
+    its examples, real frames, frame bucket and whether it applied), the
+    staging and copies a ``step.stage`` span inside it."""
 
     def train_step(state: TrainState, batch: PackedBatch, max_frames: int,
                    generator: torch.Generator) -> dict:
         model = state.model
-        clock = _Clock(step_times, model.device)
-        generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
-        tensors, host = stage_batch(batch, model.mesh)
-        tensors = {k: v.to(model.device) for k, v in tensors.items()}
-        plan = schedule(state, cfg, host["n_examples"])
-        if plan.applied:
-            set_lr(state.optimizer, plan.lr)
-        metrics = microbatch_body(state, cfg, tensors, host, max_frames, generator,
-                                  ss_prob_tensor(cfg, plan.ss_prob, model.device), plan.applied,
-                                  clock)
-        advance(state, host["n_examples"], plan.applied)
-        clock.mark("optimizer")
-        clock.close(examples=host["n_examples"], frames=int(np.sum(batch.lengths)),
-                    max_frames=max_frames, applied=plan.applied)
+        with span("step", microbatch=state.microbatches) as s:
+            generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
+            with span("step.stage"):
+                tensors, host = stage_batch(batch, model.mesh)
+                tensors = copy_to_device(tensors, model.device)
+            plan = schedule(state, cfg, host["n_examples"])
+            if plan.applied:
+                set_lr(state.optimizer, plan.lr)
+            metrics = microbatch_body(state, cfg, tensors, host, max_frames, generator,
+                                      ss_prob_tensor(cfg, plan.ss_prob, model.device),
+                                      plan.applied)
+            advance(state, host["n_examples"], plan.applied)
+        if s is not None:
+            s.attrs.update(examples=host["n_examples"], frames=int(np.sum(batch.lengths)),
+                           max_frames=max_frames, applied=plan.applied)
         return {**metrics, "lr": plan.lr, "applied": plan.applied}
 
     return train_step

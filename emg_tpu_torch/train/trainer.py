@@ -17,9 +17,10 @@ run in the fused accumulation windows of ``train/window.py`` where
 ``train.fused_window`` resolves on (auto: on a CUDA device): planned ahead
 as JAX's are, each window longer than one microbatch replayed as one CUDA
 graph (eagerly on the CPU), every other microbatch its own step; the
-numbers are the per-microbatch steps'. A trainer whose ``step_times`` is
-set (the synchronized forward/backward/optimizer split) runs every
-microbatch as its own step. The JAX trainer's prefetch threads are an XLA
+numbers are the per-microbatch steps'. While a torch profiler runs (or
+inside ``utils.profiling.recording()``) the batch assembly and each
+per-microbatch step record spans (``utils/profiling.py``), which
+synchronize nothing. The JAX trainer's prefetch threads are an XLA
 dispatch device and have no counterpart. ``--resume`` continues from the
 epoch after the one saved in ``latest``.
 
@@ -78,28 +79,21 @@ class Trainer:
     """Trains ``config.model`` on ``device`` (default ``"cuda"``; raises
     without a card unless ``"cpu"`` is asked for)."""
 
-    # a list here (set on the class or the instance before it is built)
-    # receives each microbatch's synchronized forward, backward and
-    # optimizer ms; None adds no synchronization
-    step_times: Optional[List[dict]] = None
-
     def __init__(self, config: Config, trainset: EMGDataset, devset: EMGDataset,
                  writer: MetricsWriter, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.mesh = self._build_mesh()
-        # fused accumulation windows (train/window.py), off while step_times
-        # asks for each microbatch's synchronized split
+        # fused accumulation windows (train/window.py)
         self.windows = (WindowRunner(config.train, self.device)
-                        if windows_enabled(config.train, self.device, self.mesh)
-                        and self.step_times is None else None)
+                        if windows_enabled(config.train, self.device, self.mesh) else None)
         self.trainset = trainset
         self.devset = devset
         # only rank 0 writes metrics (the reported losses are global sums,
         # the same on every rank)
         self.writer = writer if distributed.is_primary() else NullMetricsWriter()
         self.ckpt = CheckpointManager(config.paths.output_directory, self.mesh)
-        self.train_step = make_train_step(config.train, self.step_times)
+        self.train_step = make_train_step(config.train)
         self.eval_step = make_eval_step(config.train)
         self.generator = torch.Generator(device=self.device)
         self.train_losses: List[float] = []  # every microbatch's loss, in order

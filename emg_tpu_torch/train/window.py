@@ -61,6 +61,7 @@ from emg_tpu_torch.parallel.train_step import (
     stage_batch,
     step_seed,
 )
+from emg_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -73,22 +74,23 @@ def plan_windows(batch_lists: Sequence[Sequence[int]], start_accum: int, cfg) ->
     ``batch_size_grad``, from ``start_accum``), at every ``report_loss``
     boundary and at ``MAX_WINDOW`` microbatches. JAX's
     ``Trainer._plan_windows``."""
-    windows: List[int] = []
-    accum = start_accum
-    run = 0
-    for step, idxs in enumerate(batch_lists):
-        accum += len(idxs)
-        run += 1
-        cut = run >= MAX_WINDOW or (step + 1) % cfg.report_loss == 0
-        if accum >= cfg.batch_size_grad:
-            accum = 0
-            cut = True
-        if cut:
+    with span("window.plan"):
+        windows: List[int] = []
+        accum = start_accum
+        run = 0
+        for step, idxs in enumerate(batch_lists):
+            accum += len(idxs)
+            run += 1
+            cut = run >= MAX_WINDOW or (step + 1) % cfg.report_loss == 0
+            if accum >= cfg.batch_size_grad:
+                accum = 0
+                cut = True
+            if cut:
+                windows.append(run)
+                run = 0
+        if run:
             windows.append(run)
-            run = 0
-    if run:
-        windows.append(run)
-    return windows
+        return windows
 
 
 def windows_enabled(cfg, device: torch.device, mesh=None) -> bool:

@@ -3,7 +3,7 @@
 - ``splice_audio``, ``confusion_matrix``, ``top_confusions`` and
   ``print_confusion`` (its printed text) equal JAX's on the same inputs.
 - ``profile_trace`` writes a torch.profiler trace into its directory whose
-  events hold an ``annotate`` region's name, and nothing when disabled.
+  events hold a ``span`` region's name, and nothing when disabled.
 - The EMG-UKA adapter: JAX's ``test_emg_uka_adapter`` on the port, and
   ``stack_frames`` and the quantile-filtered sampler's batches (same seed
   and epoch) equal to JAX's.
@@ -28,10 +28,10 @@ from emg_tpu_torch.data.emg_uka import (
     stack_frames,
 )
 from emg_tpu_torch.utils import (
-    annotate,
     confusion_matrix,
     print_confusion,
     profile_trace,
+    span,
     splice_audio,
 )
 from emg_tpu_torch.utils.confusion import top_confusions
@@ -67,7 +67,7 @@ def test_confusion_equals_jax(capsys):
 def test_profile_trace_writes_annotated_regions(tmp_path):
     log_dir = tmp_path / "trace"
     with profile_trace(str(log_dir)) as prof:
-        with annotate("torch_utils_region"):
+        with span("torch_utils_region"):
             x = torch.ones(64) * 3.0
     assert float(x.sum()) == 192.0
     files = os.listdir(log_dir)
@@ -78,7 +78,7 @@ def test_profile_trace_writes_annotated_regions(tmp_path):
 
     off = tmp_path / "off"
     with profile_trace(str(off), enabled=False) as prof:
-        with annotate("torch_utils_region"):
+        with span("torch_utils_region"):
             torch.ones(4).sum()
     assert prof is None and not off.exists()
 
