@@ -17,14 +17,14 @@ card:
      own, which launches its four ranks (one a card, NCCL), checks rank
      0's log and checkpoints, and serves the model.pt it wrote through
      the greedy path;
-  3. fused accumulation windows on the 2x2 NCCL mesh: chip_smoke.py's
-     phase 13 B=2 corpus (at 42 utterances, 21 microbatches) and flags,
-     the CLI's train mode joined by four ranks (one a card) twice with
+  3. step graphs on the 2x2 NCCL mesh: chip_smoke.py's phase 13 B=2
+     corpus (at 42 utterances, 21 microbatches) and flags, the CLI's
+     train mode joined by four ranks (one a card) twice with
      --train.fused_window false (their difference is the margin), then at
-     the flag's default (on: over NCCL each window's graph holds the
-     collectives); the window run's losses and final parameters against
-     the first eager run's, within the margin, as phase 13 holds them on
-     one card, and its captures and replays.
+     the flag's default (on: over NCCL each microbatch signature's graph
+     holds the collectives); the graphed run's losses and final
+     parameters against the first eager run's, within the margin, as
+     phase 13 holds them on one card, and its captures and replays.
 It prints the cards' names and power limits, a JSON line of the results
 and {"ok": true, ...} last; a failed check, or fewer than four cards,
 exits non-zero.
@@ -46,65 +46,67 @@ import torch
 
 CARD_GEOMETRIES = (("2x2", 2, 2, False), ("2x2_seq", 2, 2, True))
 MESH_2X2 = ["--parallel.data_axis", "2", "--parallel.model_axis", "2"]
-WINDOW_RUNS = (("eager_a", ["--train.fused_window", "false"]),
-               ("eager_b", ["--train.fused_window", "false"]), ("window", []))
+GRAPH_RUNS = (("eager_a", ["--train.fused_window", "false"]),
+             ("eager_b", ["--train.fused_window", "false"]), ("graphed", []))
 
 
-def window_ranks(argv, out_dir):
-    """A rank of the 2x2 window case: the CLI's train mode, joined through
-    cli.main, once for each of WINDOW_RUNS; rank 0 writes each run's
-    microbatch losses and its window runner's counts."""
+def step_graph_ranks(argv, out_dir):
+    """A rank of the 2x2 step graph case: the CLI's train mode, joined
+    through cli.main, once for each of GRAPH_RUNS; rank 0 writes each
+    run's microbatch losses and its step graphs' counts."""
     import torch.distributed as dist
 
     import chip_smoke
     from emg_tpu_torch import cli
 
-    for name, flags in WINDOW_RUNS:
-        trainer = cli.main(argv + chip_smoke.WINDOW_ARGS + MESH_2X2 + flags + [
-            "--device", "cuda", "--output_directory", os.path.join(out_dir, name)])
+    for name, flags in GRAPH_RUNS:
+        states = []
+        with chip_smoke.keeping_states(states):
+            trainer = cli.main(argv + chip_smoke.WINDOW_ARGS + MESH_2X2 + flags + [
+                "--device", "cuda", "--output_directory", os.path.join(out_dir, name)])
         logging.getLogger().handlers.clear()
         if dist.get_rank() == 0:
-            runner = trainer.windows
+            graphs = states[-1].step_graphs
             with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
                 json.dump(dict(losses=trainer.train_losses, epoch_seconds=trainer.epoch_seconds,
-                               windows=None if runner is None else dict(
-                                   captures=runner.captures, replays=runner.replays,
-                                   graphs=[dict(microbatches=len(c.inputs), replays=c.replays,
-                                                capture_s=c.capture_s, pool_bytes=c.pool_bytes)
-                                           for c in runner.graphs.values()])), f)
+                               step_graphs=None if graphs is None else dict(
+                                   captures=graphs.captures, replays=graphs.replays,
+                                   graphs=[dict(key=list(key), runs=h.replays)
+                                           for key, h in graphs.graphs.items()])), f, default=str)
 
 
-def mesh_windows(root, record) -> dict:
-    """Step 3: the window case's ranks, then its checks."""
+def mesh_step_graphs(root, record) -> dict:
+    """Step 3: the step graph case's ranks, then its checks."""
     import chip_smoke
     from emg_tpu_torch.parallel.distributed import launch
 
     croot = os.path.join(root, "window_corpus")
-    # phase 13's B=2 corpus at 42 utterances (21 microbatches: 4
-    # signatures, 3 replayed), where phase 13 takes 18 for its time
+    # phase 13's B=2 corpus at 42 utterances (21 microbatches), where
+    # phase 13 takes 18 for its time
     argv = chip_smoke.make_window_corpus(
         croot, dict(chip_smoke.WINDOW_CORPUS, sentences_per_session=24))
     t0 = time.perf_counter()
-    launch(window_ranks, (argv, croot), 4, "cuda")
+    launch(step_graph_ranks, (argv, croot), 4, "cuda")
     runs = {}
-    for name, _ in WINDOW_RUNS:
+    for name, _ in GRAPH_RUNS:
         with open(os.path.join(croot, f"{name}.json")) as f:
             runs[name] = json.load(f)
         runs[name]["state"] = chip_smoke.run_state(os.path.join(croot, name), runs[name]["losses"])
     margin = chip_smoke.run_difference(runs["eager_b"]["state"], runs["eager_a"]["state"])
-    window = chip_smoke.run_difference(runs["window"]["state"], runs["eager_a"]["state"])
-    result = dict(launch_s=time.perf_counter() - t0, margin=margin, window_vs_eager=window,
-                  microbatches=runs["window"]["state"]["microbatches"],
-                  windows={name: r["windows"] for name, r in runs.items()},
+    graphed = chip_smoke.run_difference(runs["graphed"]["state"], runs["eager_a"]["state"])
+    n = runs["graphed"]["state"]["microbatches"]
+    result = dict(launch_s=time.perf_counter() - t0, margin=margin, graphed_vs_eager=graphed,
+                  microbatches=n, step_graphs={name: r["step_graphs"] for name, r in runs.items()},
                   epoch_seconds={name: r["epoch_seconds"] for name, r in runs.items()})
-    record["mesh_windows"] = result
-    logging.info("2x2 windows %s", json.dumps(result, default=str))
-    graphs = (result["windows"]["window"] or {}).get("graphs", [])
-    if sum(g["replays"] > 0 for g in graphs) < 2:
-        raise AssertionError(f"fewer than two window signatures were replayed on 2x2: {graphs}")
-    if any(result["windows"][name] is not None for name in ("eager_a", "eager_b")):
-        raise AssertionError("an eager run used windows")
-    chip_smoke.check_window_margin(window, margin)
+    record["mesh_step_graphs"] = result
+    logging.info("2x2 step graphs %s", json.dumps(result, default=str))
+    sg = result["step_graphs"]["graphed"] or {}
+    if not (sg.get("replays") and sg["captures"] + sg["replays"] == n):
+        raise AssertionError(f"the 2x2 graphed run did not capture or replay every microbatch: "
+                             f"{sg}")
+    if any(result["step_graphs"][name] is not None for name in ("eager_a", "eager_b")):
+        raise AssertionError("an eager run used step graphs")
+    chip_smoke.check_window_margin(graphed, margin)
     return result
 
 
@@ -147,7 +149,7 @@ def main():
                                           own_launch_s=time.perf_counter() - t0)
         if "2 data x 2 model" not in epoch["mesh_line"] or "nccl" not in epoch["mesh_line"]:
             raise AssertionError(f"rank 0's log does not name a 2x2 NCCL mesh: {epoch}")
-        windows = mesh_windows(root, record)
+        graphed = mesh_step_graphs(root, record)
     record["total_s"] = time.perf_counter() - started
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -161,7 +163,7 @@ def main():
                    warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],
                    single_rank_step_ms=g["ranks"][0]["single_rank_step_ms"])
         for name, g in steps.items()}, "cli_epoch": record["mesh_cli_epoch"],
-        "windows": {k: windows[k] for k in ("margin", "window_vs_eager", "windows")},
+        "step_graphs": {k: graphed[k] for k in ("margin", "graphed_vs_eager", "step_graphs")},
         "total_s": record["total_s"]}, default=str))
     print("\n".join(cards))
     print(json.dumps({"ok": True, "device": {

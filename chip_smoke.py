@@ -41,15 +41,19 @@ Phases, in order; any failure exits non-zero:
   7. training at full width (the flagship at its defaults: float32,
      dropout 0.2) through the CLI's train mode on the same corpus, at the
      reference's max_batch_length, with the five kernels' launch counts over
-     that run alone, its epochs' wall time, frames per second and peak
-     memory; then greedy evaluation of the model.pt it wrote; the same run
+     that run alone (its microbatches through step graphs, whose replays
+     call no wrapper: K3-K5 and the CTC kernels counted by name in a
+     device-only torch.profiler trace held over the run itself,
+     ``traced_launches``), its epochs' wall time (under that trace),
+     frames per second and peak memory; then greedy evaluation of the model.pt it wrote; the same run
      again, every microbatch its own step, its steps under torch.profiler
      with the port's spans recording, for their split: each phase's host
      issue ms (stage, forward, backward, optimizer) from the spans and its
      device ms from the profiler (the split no longer synchronizes);
      kernels 3-5 against their plain versions at every shape the run
      launched them with, timed;
-  8. one float32 train step (the run's largest microbatch) with the kernels
+  8. one float32 train step (the run's largest microbatch; the eager step,
+     as in phases 10, 12, 13 and 15's direct steps) with the kernels
      and with their plain versions, from the same weights, batch and
      generator seeds (dropout 0.2): losses and every parameter gradient
      agree; its unprofiled wall time and a torch.profiler trace of it; one
@@ -124,24 +128,29 @@ Phases, in order; any failure exits non-zero:
      encoder layer recomputed in the backward) and without, from the same
      weights, batch and seeds: the loss bitwise, the gradients within phase
      8's bounds, K3 twice a layer (12) and K4, K5 once (6), each one's peak
-     memory and warm step ms; then fused accumulation windows, in two
-     cases: a corpus of 18 utterances of one length (B=2 at T=256, where
-     the eager step is launch-bound; windows of one composition recur),
-     and phase 7's microbatch shapes (B=32 and B=16 at 384 frames) from
-     54 utterances of mixed lengths, whose windows recur with other
-     members, so a replay runs at other example counts, packed rows and
-     frame lengths than its capture. In each, the CLI's train mode twice
-     with --train.fused_window false and once at its default (on: each
-     window of 2 microbatches one CUDA graph, captured once a signature
-     and replayed), the window run's losses and final parameters held to
-     the eager runs' own margin, its captures, replays, capture seconds,
-     pool memory and each signature's counts; the wrappers' launch counts
-     (a capture launches nothing and a replay calls no wrapper) and the
-     replays' launches, from a torch.profiler trace of the run's replays
-     run again, by kernel name: K3-K5 once a layer and the CTC kernels
-     once a microbatch they hold, and the window run's K3-K5 in all once a
-     layer a microbatch; each mode's warm ms a microbatch and one replay's idle
-     share (torch.profiler); then the conformer (--model.encoder_kind
+     memory and warm step ms; then step graphs (one CUDA graph a
+     microbatch signature), in four cases: a corpus of 18 utterances of
+     one length (B=2 at T=256, where the eager step is launch-bound; two
+     signatures recur), phase 7's microbatch shapes (B=32 and B=16 at 384
+     frames) from 54 utterances of mixed lengths, whose microbatches recur
+     with other members, so a replay runs at other example counts, packed
+     rows and frame lengths than its capture; that corpus at bfloat16, as
+     the benchmark's cells train; and at float32 under phase 10's
+     augmentations and scheduled sampling, its probability ramped over the
+     run (STEP_GRAPH_RECIPE), so that graphs replay at other probabilities
+     than their capture's. In each (``step_graph_case``), the CLI's train
+     mode twice with --train.fused_window false and once at its default
+     (on: each microbatch its signature's graph, captured once and
+     replayed), the graphed run's losses and final parameters held to the
+     eager runs' own margin, its captures, replays, warm-ups and each
+     signature's counts; the eager runs' launches from the wrappers, the
+     graphed run's by kernel name from a device-only torch.profiler trace
+     held over the run itself (a capture launches nothing and a replay
+     calls no wrapper): the replays' K3-K5 once a layer and CTC kernels
+     once a microbatch they ran, and every run's K3-K5 in all once a layer
+     a microbatch; each run's train loop ms a microbatch, and one graph's
+     replay against its body run eagerly on its buffers (ms a microbatch,
+     busy ms and idle share); then the conformer (--model.encoder_kind
      conformer, phase 12's microbatch) on 1x2 and sequence-sharded 1x2
      meshes of two ranks sharing the card (gloo) against the single-rank
      conformer step, with phase 12's bounds, each rank's warm step ms
@@ -175,13 +184,13 @@ Phases, in order; any failure exits non-zero:
      kernel runs' own difference; then the bf16 step against the float32
      one, warm, in turns: CUDA-event ms and each one's peak memory; (b) one
      epoch of the CLI's train mode at bf16 (phase 7's flags): K1, K3-K5 and
-     the CTC's launches over that run alone (K3-K5 at bf16 only, the CTC on
-     float32 log-probs only), frames/s and peak memory beside phase 7's,
+     the CTC's launches over that run alone (``traced_launches``, as phase
+     7's; K3-K5 at bf16 only, the CTC on float32 log-probs only), frames/s and peak memory beside phase 7's,
      greedy evaluation of its model.pt, then K3-K5 at bf16 against their
      plain versions at every shape it launched, timed; (c) phase 13's first
-     window case at bf16 (``window_case``: two eager runs and one run of
-     window graphs, held to their margin, the replays' launches from a
-     trace); (d) ``filtfilt`` and ``preprocess_emg_host`` on a test
+     step graph case at bf16 (``step_graph_case``: two eager runs and one
+     of step graphs, held to their margin, the graphed run's launches from
+     a trace over it); (d) ``filtfilt`` and ``preprocess_emg_host`` on a test
      utterance with K1 and with its plain version. The kernels line's K3-K5
      rows gain "bf16" (their times at (b)'s largest shape) and every row
      "launches_phase15" ((b)'s counts).
@@ -1495,6 +1504,57 @@ def kernel_counters():
             "ctc_backward": ctc.ctc_backward}
 
 
+def keeping_states(states: list):
+    """Patch ``Trainer.train`` to append the state each run ends with to
+    ``states`` (a state's step graphs are found by it); the run itself is
+    unchanged."""
+    from emg_tpu_torch.train.trainer import Trainer
+
+    real = Trainer.train
+
+    def train(self, *args, **kwargs):
+        states.append(real(self, *args, **kwargs))
+        return states[-1]
+    return mock.patch.object(Trainer, "train", train)
+
+
+@contextlib.contextmanager
+def traced_launches(sink: dict):
+    """Zero the kernel wrappers' counts and keep a device-only
+    torch.profiler trace open over the block; once it closes, ``sink``
+    holds the block's ``launches``: the wrappers' counts (eager launches:
+    a capture launches nothing and a replay calls no wrapper) with K3-K5's
+    and the CTC kernels' counted by name in the trace (``trace_launches``),
+    eager and replayed alike; and ``launches_in_replays``, the trace's
+    count less the wrappers' for those kernels, which the graphs' replays
+    launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield sink
+        torch.cuda.synchronize()
+    wrappers = {name: fn.launches for name, fn in counters.items()}
+    traced = trace_launches(prof)
+    rows = (*K345, "ctc_forward", "ctc_backward")
+    sink["launches"] = {**wrappers, **{k: traced[k] for k in rows}}
+    sink["launches_in_replays"] = {k: traced[k] - wrappers[k] for k in rows}
+    if min(sink["launches_in_replays"].values()) < 0:
+        raise AssertionError(f"the trace holds fewer launches than the wrappers counted: "
+                             f"{traced} vs {wrappers}")
+
+
+def eager_step(train_cfg):
+    """``make_train_step`` with step graphs off (``fused_window`` false):
+    the eager step, which phases 8, 10, 12, 13 and 15 hold against the plain
+    kernels, the mesh and remat, and time warm."""
+    from emg_tpu_torch.parallel.train_step import make_train_step
+
+    return make_train_step(dataclasses.replace(train_cfg, fused_window=False))
+
+
 def timed_method(cls, name: str, sink: list):
     """Patch a Trainer method to append (epoch, synchronized wall seconds)
     of each call to sink."""
@@ -1638,26 +1698,23 @@ def train_through_cli(argv, root, record):
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
-    # run 1, as a user runs it: no synchronization inside a step
+    # run 1, as a user runs it: no synchronization inside a step (its
+    # launches from a device-only trace over it: ``traced_launches``)
     out = os.path.join(root, "train")
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    shapes, ctc_shapes, eval_s, per_s = set(), set(), [], []
+    shapes, ctc_shapes, eval_s, per_s, traced = set(), set(), [], [], {}
     t0 = time.perf_counter()
     with recording_shapes(shapes), recording_ctc(ctc_shapes), \
             timed_method(Trainer, "evaluation_loop", eval_s), \
-            timed_method(Trainer, "report_PER", per_s):
+            timed_method(Trainer, "report_PER", per_s), traced_launches(traced):
         trainer = cli.main(argv + TRAIN_ARGS + ["--device", DEVICE, "--output_directory", out])
-    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    launches, in_replays = traced["launches"], traced["launches_in_replays"]
     logging.getLogger().handlers.clear()
 
     # run 2: the same run (same batches, seeds and masks), every microbatch
-    # through the step (no window graphs), its steps profiled
+    # through the eager step (no step graphs), its steps profiled
     profiler = TrainingProfiler()
     with profiler.over_steps():
         timed_trainer = cli.main(argv + TRAIN_ARGS + [
@@ -1692,7 +1749,8 @@ def train_through_cli(argv, root, record):
                                            if k in st})
     result = dict(
         microbatches=n, updates=int(latest["updates"]), losses=losses, launches=launches,
-        cli_wall_s=wall, peak_mem_bytes=peak, epoch_seconds=trainer.epoch_seconds,
+        launches_in_replays=in_replays, cli_wall_s=wall, peak_mem_bytes=peak,
+        epoch_seconds=trainer.epoch_seconds,
         evaluation_s=eval_s, per_report_s=per_s, frames=frames,
         train_loop_s_by_epoch=loop_by_epoch,
         # all frames over the epochs' wall time (host batch preparation and
@@ -1872,12 +1930,11 @@ def train_step_kernels_vs_plain(argv, record):
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.models.model import EMGModel
     from emg_tpu_torch.ops import flash_attention as fa
-    from emg_tpu_torch.parallel.train_step import make_train_step
     from emg_tpu_torch.train.state import create_train_state
 
     cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)])
     idxs, pb, max_frames = largest_batch(cfg)
-    step = make_train_step(cfg.train)
+    step = eager_step(cfg.train)
 
     def one_step(state, plain):
         fa.flash_train_fwd.launches = 0
@@ -1997,7 +2054,7 @@ def attention_ms(B, T, D, H, maxpos, use_flash: bool, rate: float, key_pads_only
 
 def recipe_train(args, out, record, key):
     """Train through the CLI's train mode with ``args``, every microbatch
-    its own step (no window graphs), under ``TrainingProfiler`` for the
+    its own eager step (no step graphs), under ``TrainingProfiler`` for the
     frames the steps count and their split, the five kernels' launches
     counted over the run alone. Returns (the Trainer, its result dict)."""
     from emg_tpu_torch import cli
@@ -2054,7 +2111,6 @@ def conformer_step_profile(argv, record):
     forward + backward and one eval-mode forward (scheduled sampling's
     first pass), timed alone at the step's shape."""
     from emg_tpu_torch.models.model import EMGModel
-    from emg_tpu_torch.parallel.train_step import make_train_step
     from emg_tpu_torch.train.state import create_train_state
 
     cfg = cli_config(argv + TRAIN_ARGS + RECIPE_KNOBS + CONFORMER + ["--batch_size_grad", str(10 ** 9)])
@@ -2062,7 +2118,7 @@ def conformer_step_profile(argv, record):
     state = create_train_state(EMGModel(cfg.model, device=DEVICE,
                                         generator=torch.Generator().manual_seed(0)), cfg.train)
     state.microbatches = 1  # past the ramp
-    step = make_train_step(cfg.train)
+    step = eager_step(cfg.train)
     gen = torch.Generator(device=DEVICE)
     profile = profile_step(lambda: step(state, pb, max_frames, gen))
     m = cfg.model
@@ -2819,7 +2875,6 @@ def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv=None
     from emg_tpu_torch.models.model import EMGModel
     from emg_tpu_torch.parallel.distributed import rank_device
     from emg_tpu_torch.parallel.mesh import Mesh, MeshShape, gather_full, shard_params
-    from emg_tpu_torch.parallel.train_step import make_train_step
     from emg_tpu_torch.train.state import create_train_state
 
     rank, device = dist.get_rank(), rank_device(DEVICE)
@@ -2832,7 +2887,7 @@ def mesh_rank_steps(cfg_argv, pb, max_frames, out_dir, geometries, cli_argv=None
         # host-clock marks (seconds since the epoch, one clock for all ranks)
         timeline = {"start": time.time()}
         cfg = Config.from_args(cfg_argv + ["--seed", str(seed)])
-        step = make_train_step(cfg.train)
+        step = eager_step(cfg.train)
         # the seeded weights, drawn once; each step starts from a copy
         t0 = time.perf_counter()
         base = EMGModel(cfg.model, device=device, generator=torch.Generator().manual_seed(seed))
@@ -3070,7 +3125,7 @@ def multi_device(argv, root, record):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the training extras (remat, fused windows, the conformer on the
+# phase 13: the training extras (remat, step graphs, the conformer on the
 # mesh) and the CTC kernels
 # ---------------------------------------------------------------------------
 
@@ -3082,13 +3137,13 @@ def multi_device(argv, root, record):
 # recursions: ~1e-4 of the largest gradient (on the CPU, the same
 # recursion in tensor ops against F.ctc_loss: 1.1e-4 to 2.3e-4)
 CTC_TOL = 5e-4
-# phase 13's first window corpus: 18 training utterances of one length
-# (2048 raw frames), two a microbatch at max_batch_length 8000 (B=2,
-# T=256), where the eager step is launch-bound; batch_size_grad 8 and
-# report_loss 2 plan one epoch's 9 microbatches as four windows of 2 and
-# one of 1, with and without an apply (2 signatures, each replayed once).
-# Every microbatch holds the same counts. Cut for phase 13's 90 s from 42
-# utterances (21 microbatches), which chip_mesh_cards.py's 2x2 case keeps.
+# phase 13's first step graph corpus: 18 training utterances of one
+# length (2048 raw frames), two a microbatch at max_batch_length 8000
+# (B=2, T=256), where the eager step is launch-bound; batch_size_grad 8
+# applies at every fourth of one epoch's 9 microbatches (2 signatures, with
+# and without an apply, each run several times). Every microbatch holds
+# the same counts. Cut for phase 13's 90 s from 42 utterances (21
+# microbatches), which chip_mesh_cards.py's 2x2 case keeps.
 WINDOW_CORPUS_LEN = 3000
 WINDOW_CORPUS = dict(seed=1, sentences_per_session=12, min_len=WINDOW_CORPUS_LEN,
                      max_len=WINDOW_CORPUS_LEN + 1)
@@ -3099,18 +3154,21 @@ WINDOW_ARGS = ["--n_epochs", "1", "--max_batch_length", "8000", "--batch_size_gr
 # flagship's default). Phase 7's 30 utterances fill none of the sampler's
 # buckets, so each of its microbatches holds the same utterances every
 # epoch; these 54 (2400-4200 samples) overflow theirs, so the per-epoch
-# shuffle changes each microbatch's members. report_loss 2 plans 3 epochs
-# of 4 microbatches as windows of 2: 4 signatures, 2 replayed, each replay
-# at other example counts, packed rows and frame lengths than its capture
-# (B=16 at 11 examples, then 15; B=32 and B=16 at 22 and 15 with other
-# lengths), and one window applies. Cut for phase 13's 90 s: a PER report
-# at the first epoch only (report_PER 3)
+# shuffle changes each microbatch's members: 3 epochs of 4 microbatches,
+# whose signatures recur at other example counts, packed rows and frame
+# lengths than their capture's (B=16 at 11 examples, then 15), one of
+# them applying. Cut for phase 13's 90 s: a PER report at the first epoch
+# only (report_PER 3)
 MIXED_WINDOW_CORPUS = dict(seed=2, sentences_per_session=30, min_len=2400, max_len=4200)
 MIXED_WINDOW_ARGS = ["--n_epochs", "3", "--max_batch_length", "80000", "--report_loss", "2",
                      "--report_PER", "3", "--per_train_batches", "1"]
-# the window against the eager path: the eager runs' own margin (K4's
+# the step graphs under the recipes' randomness: phase 10's augmentations
+# and scheduled sampling, its probability ramped over the run's microbatches
+# so that a graph replays at other probabilities than its capture's
+STEP_GRAPH_RECIPE = RECIPE_KNOBS[:-1] + ["12"]
+# the step graphs against the eager path: the eager runs' own margin (K4's
 # d_used atomics, from the first apply on) is one draw of the noise the
-# window's difference is another draw of, so the window is held to 4x it,
+# graphed run's difference is another draw of, so it is held to 4x it,
 # and to a floor where the eager runs happen to agree bitwise
 WINDOW_MARGIN_FACTOR = 4.0
 WINDOW_FLOOR = 1e-6
@@ -3210,12 +3268,11 @@ def remat_vs_plain(argv, record) -> dict:
     three warm steps' CUDA-event and wall ms (the two taken in turn)."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.models.model import EMGModel
-    from emg_tpu_torch.parallel.train_step import make_train_step
     from emg_tpu_torch.train.state import create_train_state
 
     cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)])
     idxs, pb, max_frames = largest_batch(cfg)
-    step = make_train_step(cfg.train)
+    step = eager_step(cfg.train)
     counters = kernel_counters()
     runs, states = {}, {}
     for remat in (False, True):
@@ -3334,28 +3391,20 @@ def run_difference(a: dict, b: dict) -> dict:
                 worst_param=worst[0], worst_param_name=worst[1])
 
 
-def recording_windows(sink: dict):
-    """Patch the window runner to keep, for each signature it ran (its key
-    in ``runner.graphs``), each window's counts in order (capture first,
-    then each replay: a microbatch's real examples, packed rows and summed
-    frame lengths) and the last window's host batches; the run itself is
-    unchanged."""
-    from emg_tpu_torch.train.window import WindowRunner
+def recording_signatures(sink: dict):
+    """Patch the step graphs to keep, for each signature they ran (its key
+    in ``StepGraphs.graphs``), each of its microbatches' counts in order
+    (capture first: real examples, packed rows, summed frame lengths); the
+    run itself is unchanged."""
+    from emg_tpu_torch.parallel.train_step import StepGraphs, microbatch_signature
 
-    real = WindowRunner.run
+    real = StepGraphs.step
 
-    def run(self, state, group):
-        before = {key: c.replays for key, c in self.graphs.items()}
-        out = real(self, state, group)
-        for key, c in self.graphs.items():
-            if before.get(key, -1) != c.replays:
-                entry = sink.setdefault(key, {"counts": []})
-                entry["counts"].append(tuple(
-                    (int(pb.n_examples), int(pb.n_rows), int(np.sum(pb.lengths)))
-                    for pb, _ in group))
-                entry["group"] = list(group)
-        return out
-    return mock.patch.object(WindowRunner, "run", run)
+    def step(self, state, batch, max_frames, plan, seed):
+        sink.setdefault(microbatch_signature(batch, max_frames, plan.applied), []).append(
+            (int(batch.n_examples), int(batch.n_rows), int(np.sum(batch.lengths))))
+        return real(self, state, batch, max_frames, plan, seed)
+    return mock.patch.object(StepGraphs, "step", step)
 
 
 # kernel names in a trace and the wrapper that launches each; K2 and K3
@@ -3390,40 +3439,35 @@ def trace_launches(prof) -> dict:
     return counts
 
 
-def replay_launches(runner) -> dict:
-    """The run's replays again, under torch.profiler, on the state the run
-    left: each window graph replayed as many times as the run replayed it,
-    in one trace; their kernels' launches (``trace_launches``)."""
-    def replays():
-        for captured in runner.graphs.values():
-            for _ in range(captured.replays):
-                captured.graph.replay()
-        torch.cuda.synchronize()
+def step_graph_profile(trainer, state) -> dict:
+    """After a run of step graphs, on the state it left: the step graph run
+    most (of those, the one of most packed rows) replayed again, against
+    ``microbatch_body`` run eagerly on the graph's own input buffers (the
+    staging left out of both), each a microbatch's wall ms and, from a
+    trace, busy ms and idle share (``replay_vs_eager``)."""
+    from emg_tpu_torch.parallel.train_step import microbatch_body
 
-    prof, _ = profiled(replays, device_only=True)
-    return trace_launches(prof)
-
-
-def window_profile(trainer, state, windows: dict) -> dict:
-    """After the window run, on the state it left: the window graph
-    replayed most (of those, the one of most packed rows), replayed again,
-    against its last window's microbatches (``recording_windows``) as
-    per-microbatch steps (``trainer.train_step``, the eager path), each a
-    microbatch's wall ms (median of three synchronized passes) and, from a
-    torch.profiler trace of one more pass each, the card's busy ms and idle
-    share (of the unprofiled wall, and of the trace's device span)."""
-    key, captured = max(trainer.windows.graphs.items(),
-                        key=lambda kv: (kv[1].replays, sum(s[0][0] for s in kv[0])))
-    group = windows[key]["group"]
-    n = len(group)
+    graphs = state.step_graphs
+    held = max(graphs.graphs.values(), key=lambda h: (h.replays, h.key[0][0]))
+    _, _, _, max_frames, applied = held.key
 
     def eager():
-        for pb, max_frames in group:
-            trainer.train_step(state, pb, max_frames, trainer.generator)
+        microbatch_body(state, trainer.config.train, held.tensors, held.host, max_frames,
+                        graphs.generator, held.ss_prob, applied)
 
-    result = {"microbatches": n, "examples": [int(pb.n_examples) for pb, _ in group],
-              "max_frames": [max_frames for _, max_frames in group]}
-    for name, run in (("replay", captured.graph.replay), ("eager", eager)):
+    result = {"microbatches": 1, "signature": list(held.key), "runs": held.replays}
+    result.update(replay_vs_eager(held.graph.replay, eager, 1))
+    return result
+
+
+def replay_vs_eager(replay, eager, n: int) -> dict:
+    """``replay`` (a graph of n microbatches) against ``eager`` (the same
+    microbatches, eagerly): for each, a microbatch's wall ms (median of
+    three synchronized passes) and, from a torch.profiler trace of one more
+    pass, the card's busy ms and idle share (of the unprofiled wall, and of
+    the trace's device span)."""
+    result = {}
+    for name, run in (("replay", replay), ("eager", eager)):
         run()
         walls = [timed_sync(run)[1] for _ in range(3)]
         wall = float(np.median(walls))
@@ -3431,7 +3475,7 @@ def window_profile(trainer, state, windows: dict) -> dict:
         prof, profiled_wall = profiled(lambda: (run(), torch.cuda.synchronize()),
                                        device_only=True)
         try:
-            by_name, span, kernels = device_work(prof, f"a window's {name}")
+            by_name, span, kernels = device_work(prof, f"a graph's {name}")
         except AssertionError as e:  # the trace saw no device work
             row.update(idle_share="not measured", profiler=str(e))
         else:
@@ -3443,24 +3487,27 @@ def window_profile(trainer, state, windows: dict) -> dict:
     return result
 
 
-def window_case(root, name: str, corpus, args) -> dict:
+def step_graph_case(root, name: str, corpus, args) -> dict:
     """The CLI's train mode on a window corpus three times: twice with
     --train.fused_window false (their difference is the margin), then with
-    the flag at its default (auto: on, on the card). The window run's
-    losses and final parameters against the first eager run's, within the
-    margin; its captures, replays, capture seconds and pool memory, and
-    each signature's counts; each run's kernel launches: the wrappers'
-    counts (eager steps and evaluation passes; a capture launches nothing)
-    and, for the window run, its replays' launches, from a trace of the
-    same replays run again (``replay_launches``); each run's train loop ms
-    a microbatch (the epochs less their evaluation passes and PER reports:
-    batch assembly, captures and steps); then, on the state the window run
-    left, a window's microbatches replayed and as eager steps
-    (``window_profile``); the seconds of the corpus, the trace and the
-    profile. Fails unless the replays launch K3-K5 once a layer and the
-    CTC kernels once for each microbatch they hold, the window run's K3-K5
-    launches in all come to a layer's each microbatch, and the window run
-    holds to the margin."""
+    the flag at its default (auto: on, on the card: each microbatch through
+    its signature's step graph). The graphed run's losses and final
+    parameters against the first eager run's, within the margin; its step
+    graphs' captures, replays (of graphs captured at an earlier
+    microbatch), eager warm-ups, and each signature's microbatches' counts
+    in order (``recording_signatures``: real examples, packed rows, summed
+    frame lengths); each run's kernel launches: the eager runs' from the
+    wrappers, the graphed run's from a device-only trace held over the run
+    itself (``traced_launches``), with what its replays launched; each
+    run's train loop ms a microbatch (the epochs less their evaluation
+    passes and PER reports: batch assembly, captures and steps); then, on
+    the state the graphed run left, its most-run graph replayed against
+    its body run eagerly on the same buffers (``step_graph_profile``); the
+    seconds of the corpus, the runs and the profile. Fails unless the
+    replays launch K3-K5 once a layer and the CTC kernels once for each
+    microbatch they ran, every run's K3-K5 launches in all come to a
+    layer's each microbatch, every graphed microbatch was a capture or a
+    replay, and the graphed run holds to the margin."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
@@ -3469,107 +3516,115 @@ def window_case(root, name: str, corpus, args) -> dict:
     argv = make_window_corpus(croot, corpus)
     parts_s = dict(corpus=time.perf_counter() - t0)
     counters = kernel_counters()
-    runs, states, windows = {}, [], {}
-    real_train = Trainer.train
-
-    def keeping_state(self, *args, **kwargs):
-        states.append(real_train(self, *args, **kwargs))
-        return states[-1]
-
+    runs, states, signatures, traced = {}, [], {}, {}
     for run, flags in (("eager_a", ["--train.fused_window", "false"]),
-                       ("eager_b", ["--train.fused_window", "false"]), ("window", [])):
+                       ("eager_b", ["--train.fused_window", "false"]), ("graphed", [])):
         for fn in counters.values():
             fn.launches = 0
         eval_s, per_s = [], []
         t0 = time.perf_counter()
         with timed_method(Trainer, "evaluation_loop", eval_s), \
-                timed_method(Trainer, "report_PER", per_s), \
-                mock.patch.object(Trainer, "train", keeping_state), \
-                recording_windows(windows if run == "window" else {}):
+                timed_method(Trainer, "report_PER", per_s), keeping_states(states), \
+                recording_signatures(signatures), \
+                (traced_launches(traced) if run == "graphed" else contextlib.nullcontext()):
             trainer = cli.main(argv + args + flags + [
                 "--device", DEVICE, "--output_directory", os.path.join(croot, run)])
         torch.cuda.synchronize()
         logging.getLogger().handlers.clear()
         st = run_state(trainer.ckpt.directory, trainer.train_losses)
         loop = sum(trainer.epoch_seconds) - sum(s for _, s in eval_s + per_s)
-        runs[run] = dict(state=st, trainer=trainer if run == "window" else None,
-                         wall_s=time.perf_counter() - t0,
-                         launches={k: fn.launches for k, fn in counters.items()},
+        runs[run] = dict(state=st, trainer=trainer, wall_s=time.perf_counter() - t0,
+                         launches=(traced["launches"] if run == "graphed" else
+                                   {k: fn.launches for k, fn in counters.items()}),
                          epoch_seconds=trainer.epoch_seconds,
                          loop_ms_a_microbatch=loop / st["microbatches"] * 1e3)
+        parts_s[run] = runs[run]["wall_s"]
     margin = run_difference(runs["eager_b"]["state"], runs["eager_a"]["state"])
-    window = run_difference(runs["window"]["state"], runs["eager_a"]["state"])
-    trainer = runs["window"]["trainer"]
-    runner = trainer.windows
+    graphed = run_difference(runs["graphed"]["state"], runs["eager_a"]["state"])
+    trainer = runs["graphed"]["trainer"]
+    steps = states[-1].step_graphs
+    if steps is None or any(s.step_graphs is not None for s in states[:-1]):
+        raise AssertionError(f"{name}: the step graphs ran in the wrong runs")
     layers = trainer.config.model.num_layers_encoder
+    n = runs["graphed"]["state"]["microbatches"]
+    step_graphs = dict(captures=steps.captures, replays=steps.replays, warmups=steps.warmups,
+                       graphs=[dict(shapes=list(key[:4]), applies=key[-1], runs=h.replays,
+                                    counts=signatures[key]) for key, h in steps.graphs.items()])
     t0 = time.perf_counter()
-    in_replays = replay_launches(runner)
-    parts_s["replay_trace"] = time.perf_counter() - t0
-    graphs = [dict(microbatches=len(c.inputs), replays=c.replays, capture_s=c.capture_s,
-                   pool_bytes=c.pool_bytes, shapes=[list(s[:4]) for s in key],
-                   applies=key[-1][-1], counts=windows[key]["counts"])
-              for key, c in runner.graphs.items()]
-    n = runs["window"]["state"]["microbatches"]
-    t0 = time.perf_counter()
-    profile = window_profile(trainer, states[-1], windows)
+    profile = step_graph_profile(trainer, states[-1])
     parts_s["profile"] = time.perf_counter() - t0
+    in_replays = traced["launches_in_replays"]
     result = dict(
-        microbatches=n, updates=runs["window"]["state"]["updates"], margin=margin,
-        window_vs_eager=window, captures=runner.captures, replays=runner.replays, graphs=graphs,
+        microbatches=n, updates=runs["graphed"]["state"]["updates"], margin=margin,
+        graphed_vs_eager=graphed, step_graphs=step_graphs,
         launches={k: r["launches"] for k, r in runs.items()}, launches_in_replays=in_replays,
         loop_ms_a_microbatch={k: r["loop_ms_a_microbatch"] for k, r in runs.items()},
         cli_wall_s={k: r["wall_s"] for k, r in runs.items()},
         epoch_seconds={k: r["epoch_seconds"] for k, r in runs.items()}, parts_s=parts_s,
         replay_vs_eager=profile)
-    log(f"fused windows, {name} {json.dumps(result, default=str)}")
-    k345 = ("flash_train_fwd", "flash_train_bwd_dq", "flash_train_bwd_dkv")
-    replayed = sum(g["replays"] * g["microbatches"] for g in graphs)
-    want = dict({k: layers * replayed for k in k345}, ctc_forward=replayed,
+    log(f"step graphs, {name} {json.dumps(result, default=str)}")
+    replayed = sum(h.replays for h in steps.graphs.values())
+    want = dict({k: layers * replayed for k in K345}, ctc_forward=replayed,
                 ctc_backward=replayed)
     got = {k: in_replays[k] for k in want}
     if got != want:
         raise AssertionError(f"{name}: the replays launched {got}, not {want}")
     for run, r in runs.items():
-        got = {k: r["launches"][k] + (in_replays[k] if run == "window" else 0) for k in k345}
+        got = {k: r["launches"][k] for k in K345}
         if any(v != layers * n for v in got.values()):
             raise AssertionError(f"{name}, {run}: K3-K5 launched {got}, not {layers} a microbatch")
     if n != runs["eager_a"]["state"]["microbatches"]:
-        raise AssertionError(f"{name}: the window run trained another number of microbatches")
-    check_window_margin(window, margin)
+        raise AssertionError(f"{name}: the graphed run trained another number of microbatches")
+    if not (steps.replays and steps.captures + steps.replays == n):
+        raise AssertionError(f"{name}: the graphed run did not capture or replay every "
+                             f"microbatch: {steps.captures} captures, {steps.replays} replays "
+                             f"of {n}")
+    check_window_margin(graphed, margin)
     return result
 
 
-def fused_windows(root, record) -> dict:
-    """Phase 13's two window cases (``window_case``): B=2 at T=256
-    (WINDOW_CORPUS), where windows of two signatures or more must replay;
-    then phase 7's microbatch shapes at mixed lengths (MIXED_WINDOW_CORPUS),
-    where a replay must run at other counts than its capture's."""
-    small = record["fused_windows"] = window_case(root, "window_corpus", WINDOW_CORPUS,
-                                                  WINDOW_ARGS)
-    replayed = [g for g in small["graphs"] if g["replays"] > 0]
-    if len(replayed) < 2 or max(g["microbatches"] for g in replayed) < 2:
-        raise AssertionError(f"fewer than two window signatures were replayed: {small['graphs']}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    mixed = record["fused_windows_mixed"] = window_case(root, "mixed_window_corpus",
-                                                        MIXED_WINDOW_CORPUS, MIXED_WINDOW_ARGS)
-    if not any(g["replays"] > 0 and len(set(g["counts"])) > 1 for g in mixed["graphs"]):
-        raise AssertionError(f"no window graph replayed at other counts than its capture's: "
-                             f"{mixed['graphs']}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(small=small, mixed=mixed)
+def step_graph_cases(root, record) -> dict:
+    """Phase 13's step graph cases (``step_graph_case``): B=2 at T=256
+    (WINDOW_CORPUS), where the eager step is launch-bound and two
+    signatures or more must replay; phase 7's microbatch shapes at mixed
+    lengths (MIXED_WINDOW_CORPUS), where a graph must replay at other
+    counts than its capture's; the same mixed corpus at bf16, as the
+    benchmark's cells train; and that at float32 under the recipes'
+    randomness (STEP_GRAPH_RECIPE), where a graph must replay at other
+    scheduled-sampling probabilities than its capture's."""
+    cases = {}
+    for case, corpus, args in (
+            ("small", WINDOW_CORPUS, WINDOW_ARGS),
+            ("mixed", MIXED_WINDOW_CORPUS, MIXED_WINDOW_ARGS),
+            ("bf16", MIXED_WINDOW_CORPUS, MIXED_WINDOW_ARGS + BF16),
+            ("recipe", MIXED_WINDOW_CORPUS, MIXED_WINDOW_ARGS + STEP_GRAPH_RECIPE)):
+        cases[case] = record[f"step_graphs_{case}"] = step_graph_case(
+            root, f"{case}_corpus", corpus, args)
+        gc.collect()
+        torch.cuda.empty_cache()
+    graphs = cases["small"]["step_graphs"]["graphs"]
+    if sum(len(g["counts"]) > 1 for g in graphs) < 2:
+        raise AssertionError(f"fewer than two step graph signatures were replayed: {graphs}")
+    graphs = cases["mixed"]["step_graphs"]["graphs"]
+    if not any(len(set(map(tuple, g["counts"]))) > 1 for g in graphs):
+        raise AssertionError(f"no step graph replayed at other counts than its capture's: "
+                             f"{graphs}")
+    bf16 = cases["bf16"]["replay_vs_eager"]
+    log(f"step graphs, bf16: replay {bf16['replay']['wall_ms_a_microbatch']:.2f} ms vs eager "
+        f"{bf16['eager']['wall_ms_a_microbatch']:.2f} ms a microbatch; "
+        f"{cases['bf16']['step_graphs']['captures']} captures, "
+        f"{cases['bf16']['step_graphs']['replays']} replays")
+    return cases
 
 
-def check_window_margin(window: dict, margin: dict) -> None:
-    """The window run against the eager run (``run_difference``) held to
+def check_window_margin(graphed: dict, margin: dict) -> None:
+    """The graphed run against the eager run (``run_difference``) held to
     the eager runs' own margin, as WINDOW_MARGIN_FACTOR says."""
     for key in ("loss_rel", "params_norm_rel"):
         limit = max(WINDOW_MARGIN_FACTOR * margin[key], WINDOW_FLOOR)
-        if not window[key] <= limit:
-            raise AssertionError(f"the window run's {key} {window[key]} is over {limit} (the "
+        if not graphed[key] <= limit:
+            raise AssertionError(f"the graphed run's {key} {graphed[key]} is over {limit} (the "
                                  f"eager runs' margin {margin[key]})")
-
 
 def conformer_mesh_run(argv, root, pb, max_frames) -> tuple:
     """``mesh_rank_steps``' arguments for phase 13's conformer steps, which
@@ -3612,10 +3667,10 @@ def training_extras(argv, root, record):
     t0 = time.perf_counter()
     remat = remat_vs_plain(argv, record)
     t1 = time.perf_counter()
-    windows = fused_windows(root, record)
+    cases = step_graph_cases(root, record)
     t2 = time.perf_counter()
     conformer = conformer_mesh(root, record)
-    record["extras_parts_s"] = dict(remat=t1 - t0, fused_windows=t2 - t1,
+    record["extras_parts_s"] = dict(remat=t1 - t0, step_graphs=t2 - t1,
                                     conformer_mesh_check=time.perf_counter() - t2)
     record["extras_phase_s"] = time.perf_counter() - t0
     log(f"phase 13 took {record['extras_phase_s']:.1f} s")
@@ -3624,9 +3679,9 @@ def training_extras(argv, root, record):
                                      "grad_norm_rel_err", "launches_remat", "peak_bytes_plain",
                                      "peak_bytes_remat", "warm_step_ms_plain",
                                      "warm_step_ms_remat")},
-        fused_windows={case: {k: w[k] for k in (
-            "margin", "window_vs_eager", "captures", "replays", "launches_in_replays",
-            "loop_ms_a_microbatch", "replay_vs_eager")} for case, w in windows.items()},
+        step_graphs={case: {k: c[k] for k in (
+            "margin", "graphed_vs_eager", "step_graphs", "launches_in_replays",
+            "loop_ms_a_microbatch", "replay_vs_eager")} for case, c in cases.items()},
         conformer_mesh={name: dict(loss_rel_err=g["ranks"][0]["loss_rel_err"],
                                    grad_norm_rel_err=g["ranks"][0]["grad_norm_rel_err"],
                                    warm_step_cuda_event_ms=[r["warm_step_ms"] for r in g["ranks"]],
@@ -4062,12 +4117,11 @@ def bf16_step(argv, record) -> dict:
     three warm steps' CUDA-event and wall ms, the two taken in turn."""
     from emg_tpu_torch.config import Config
     from emg_tpu_torch.models.model import EMGModel
-    from emg_tpu_torch.parallel.train_step import make_train_step
     from emg_tpu_torch.train.state import create_train_state
 
     cfg = Config.from_args(argv + TRAIN_ARGS + ["--batch_size_grad", str(10 ** 9)] + BF16)
     idxs, pb, max_frames = largest_batch(cfg)
-    step = make_train_step(cfg.train)
+    step = eager_step(cfg.train)
     counters = kernel_counters()
 
     def state_for(model_cfg):
@@ -4148,7 +4202,7 @@ def bf16_step(argv, record) -> dict:
 
 def recording_frames(sink: list):
     """Patch the trainer to append each training microbatch's encoder
-    frames to sink, as it assembles the batch (a step and a window alike);
+    frames to sink, as it assembles the batch;
     the run itself is unchanged."""
     from emg_tpu_torch.train.trainer import Trainer
 
@@ -4176,35 +4230,34 @@ def recording_ctc_dtypes(dtypes: set):
 
 def bf16_train_through_cli(argv, root, record) -> dict:
     """Phase 15 (b): one epoch of the CLI's train mode at bfloat16 (phase
-    7's flags), its launches over that run alone, its train loop's frames/s
-    and peak memory beside phase 7's float32 run; greedy evaluation of the
-    model.pt it wrote; then K3-K5 at bfloat16 against their plain versions
-    at every shape the run launched them with, timed."""
+    7's flags), its launches over that run alone (``traced_launches``), its
+    train loop's frames/s and peak memory beside phase 7's float32 run;
+    greedy evaluation of the model.pt it wrote; then K3-K5 at bfloat16
+    against their plain versions at every shape the run launched them
+    with, timed."""
     from emg_tpu_torch import cli
     from emg_tpu_torch.train.trainer import Trainer
 
     out = os.path.join(root, "train_bf16")
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     shapes, ctc_shapes, ctc_dtypes, frames, eval_s, per_s = set(), set(), set(), [], [], []
+    traced = {}
     t0 = time.perf_counter()
     with recording_shapes(shapes), recording_ctc(ctc_shapes), recording_ctc_dtypes(ctc_dtypes), \
             recording_frames(frames), timed_method(Trainer, "evaluation_loop", eval_s), \
-            timed_method(Trainer, "report_PER", per_s):
+            timed_method(Trainer, "report_PER", per_s), traced_launches(traced):
         trainer = cli.main(argv + BF16_TRAIN_ARGS + ["--device", DEVICE, "--output_directory", out])
-    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    launches, in_replays = traced["launches"], traced["launches_in_replays"]
     logging.getLogger().handlers.clear()
     losses = trainer.train_losses
     n = len(losses)
     loop_s = sum(trainer.epoch_seconds) - sum(s for _, s in eval_s + per_s)
     f32 = record.get("training", {})
     result = dict(
-        microbatches=n, losses=losses, launches=launches, cli_wall_s=wall, peak_mem_bytes=peak,
+        microbatches=n, losses=losses, launches=launches, launches_in_replays=in_replays,
+        cli_wall_s=wall, peak_mem_bytes=peak,
         epoch_seconds=trainer.epoch_seconds, evaluation_s=eval_s, per_report_s=per_s,
         frames=sum(frames), train_loop_s=loop_s, frames_per_s_train_loop=sum(frames) / loop_s,
         attention_shapes=sorted(shapes), ctc_shapes=sorted(ctc_shapes),
@@ -4237,12 +4290,11 @@ def bf16_train_through_cli(argv, root, record) -> dict:
 
 
 def bf16_windows(root, record) -> dict:
-    """Phase 15 (c): phase 13's first window case (B=2 at T=256) at
-    bfloat16 (``window_case``), its replay held to its eager runs' margin."""
-    result = record["fused_windows_bf16"] = window_case(
-        root, "window_corpus_bf16", WINDOW_CORPUS, WINDOW_ARGS + BF16)
-    if not any(g["replays"] > 0 and g["microbatches"] > 1 for g in result["graphs"]):
-        raise AssertionError(f"no bf16 window graph of 2 microbatches replayed: {result['graphs']}")
+    """Phase 15 (c): phase 13's first step graph case (B=2 at T=256, where
+    the eager step is launch-bound) at bfloat16 (``step_graph_case``),
+    held to its eager runs' margin."""
+    result = record["step_graphs_small_bf16"] = step_graph_case(
+        root, "small_corpus_bf16", WINDOW_CORPUS, WINDOW_ARGS + BF16)
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -4308,10 +4360,10 @@ def bf16_training(argv, root, record):
     t1 = time.perf_counter()
     cli_run = bf16_train_through_cli(argv, root, record)
     t2 = time.perf_counter()
-    windows = bf16_windows(root, record)
+    graphs = bf16_windows(root, record)
     t3 = time.perf_counter()
     dsp = dsp_extras_on_k1(argv, record)
-    record["bf16_parts_s"] = dict(step=t1 - t0, cli=t2 - t1, windows=t3 - t2,
+    record["bf16_parts_s"] = dict(step=t1 - t0, cli=t2 - t1, step_graphs=t3 - t2,
                                   dsp=time.perf_counter() - t3)
     record["bf16_phase_s"] = time.perf_counter() - t0
     log(f"phase 15 took {record['bf16_phase_s']:.1f} s")
@@ -4322,8 +4374,8 @@ def bf16_training(argv, root, record):
         cli={k: cli_run[k] for k in ("launches", "frames_per_s_train_loop", "peak_mem_bytes",
                                      "f32_first_epoch_frames_per_s", "f32_peak_mem_bytes",
                                      "served", "attention_shapes")},
-        windows={k: windows[k] for k in ("margin", "window_vs_eager", "captures", "replays",
-                                         "launches_in_replays", "replay_vs_eager")},
+        step_graphs={k: graphs[k] for k in ("margin", "graphed_vs_eager", "step_graphs",
+                                            "launches_in_replays", "replay_vs_eager")},
         dsp=dsp, phase_s=record["bf16_phase_s"])
     print(json.dumps({"bf16_training": summary}, default=str), flush=True)
     return cli_run
@@ -4390,7 +4442,7 @@ def main():
         beam_remainder(argv, ckpt, root, record)
         log("phase 12: multi-device training, two ranks sharing the card")
         multi_device(argv, root, record)
-        log("phase 13: the training extras (remat, fused windows, the conformer on the mesh)")
+        log("phase 13: the training extras (remat, step graphs, the conformer on the mesh)")
         training_extras(argv, root, record)
         log("phase 14: the batched DSP, capture to data, the host scipy DSP")
         dsp_launches = dsp_paths(argv, root, record)

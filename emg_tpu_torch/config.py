@@ -104,6 +104,8 @@ class TrainConfig:
     eval_batches: int = 10
     per_train_batches: int = 15
     fused_window: "bool | None" = None
+    # JAX's cap on its window programs, kept so the two configurations
+    # match; the port captures one graph a microbatch signature, uncapped
     window_max_compiles: int = 64
     prefetch_depth: int = 40
     stage_int16: bool = True

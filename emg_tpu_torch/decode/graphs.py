@@ -61,7 +61,7 @@ _capture_streams: Dict[int, "torch.cuda.Stream"] = {}
 
 def capture_stream(device: int) -> "torch.cuda.Stream":
     """The side stream on which every warm-up and capture of ``device``
-    runs (decode loops and training windows alike)."""
+    runs (decode loops and training step graphs alike)."""
     if device not in _capture_streams:
         _capture_streams[device] = torch.cuda.Stream(device)
     return _capture_streams[device]

@@ -40,7 +40,8 @@ shard_params``) every rank runs this step on its block of the batch
   every rank, and each rank keeps its slice (the recipes' draws here, the
   dropouts in the model), so a sharded step draws one device's numbers.
 
-Randomness: each microbatch reseeds the caller's ``torch.Generator`` from
+Randomness: each microbatch reseeds the caller's ``torch.Generator`` (the
+step graphs' own where they run) from
 (train.seed, microbatch counter), as the JAX step folds the counter into
 its key, so a resumed run draws what an uninterrupted one would. The step
 draws the recipes' randomness first (``draw_recipe_randomness``: only the
@@ -58,17 +59,55 @@ teacher length, CE tokens) as a 0-dim device tensor, masks where the JAX
 step masks and slices nothing by a host value, so its kernels depend on
 the batch's shapes alone. On the card AdamW is ``capturable`` with a
 device LR (``train/state.py``), on every path.
+
+Step graphs: where ``train.fused_window`` resolves on (``windows_enabled``:
+a CUDA device, alone or on a mesh over NCCL), the step runs
+``microbatch_body`` as one CUDA graph per microbatch signature
+(``microbatch_signature``: the staged packed rows' shape and dtype, the
+targets' shape, the frame bucket, whether it applies), as JAX runs its step
+jitted once per shape, and with no cap: signatures are bounded by the
+bucket grid. The train state holds its ``StepGraphs``
+(``state.step_graphs``), and they hold one memory pool:
+
+- a signature's first microbatch captures the body on the capture stream
+  (``decode/graphs.py::capture_stream``, the decode loops' too) over new
+  input buffers, before its batch's copies, so the card runs the previous
+  microbatch while the host captures; then it copies the batch in and
+  replays: its numbers are the replay's. A state's first microbatch, and
+  its first AdamW apply (which makes AdamW's moments), are copied first
+  and run the body eagerly on the capture stream before the capture (the
+  warm-up a capture needs), so that the stream's cuBLAS workspace and
+  AdamW's state live outside the pool; that microbatch's numbers are the
+  eager run's;
+- a later microbatch of a signature copies its staged batch into the
+  graph's input buffers (the same six blocking copies, each a ``sync``
+  span), seeds the graphs' generator with ``step_seed``, writes the
+  scheduled-sampling probability and the LR into their device tensors and
+  replays (a ``step.replay`` span), then clones the outputs.
+
+So the numbers are the eager step's, with the same draws. Nothing in the
+body reads the device from the host, and its kernels launch on the
+capturing stream (``ops/build.py::current_stream_ptr``). A failed capture
+or replay raises; a capture that replaced a gradient buffer raises. A
+kernel wrapper counts only the launches it makes (``ops/build.py::
+count_launch``): not its calls under capture, nor a replay's launches.
+Counters: ``step_graphs.capture`` a capture, ``step_graphs.replay`` a
+replay of a graph captured at an earlier microbatch. On the CPU with
+``fused_window`` true the same bookkeeping runs the body eagerly on the
+held buffers (``LoopRunner``'s convention for decode loops); elsewhere on
+the CPU, on a gloo mesh and with ``fused_window`` false the step is eager.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from emg_tpu_torch.data.batching import PackedBatch, dequantize_packed_raw
+from emg_tpu_torch.decode.graphs import capture_stream
 from emg_tpu_torch.ops.ctc import ctc_loss
 from emg_tpu_torch.ops.losses import combined_loss, label_smoothing_loss
 from emg_tpu_torch.train.state import TrainState, warmup_lr
@@ -385,46 +424,216 @@ def microbatch_body(state: TrainState, cfg, tensors: Dict[str, torch.Tensor],
                      "enc_loss": enc_loss.detach()}, mesh)
 
 
-def copy_to_device(tensors: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
-    """Staged CPU tensors on ``device``. A copy of pageable host memory to
-    a card blocks the host until the stream has run it: each is a ``sync``
-    span and counts in ``host_syncs``."""
+def copy_to_device(tensors: Dict[str, torch.Tensor], device,
+                   into: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """Staged CPU tensors on ``device``: new tensors, or copied into the
+    device tensors ``into`` (a step graph's input buffers, whose shapes the
+    microbatch's signature fixes). A copy of pageable host memory to a card
+    blocks the host until the stream has run it: each is a ``sync`` span
+    and counts in ``host_syncs``."""
+
+    def one(k, v):
+        return v.to(device) if into is None else into[k].copy_(v)
+
     if device.type != "cuda":
-        return {k: v.to(device) for k, v in tensors.items()}
+        return {k: one(k, v) for k, v in tensors.items()}
     out = {}
     for k, v in tensors.items():
         with span("sync") as s:
             count("host_syncs")
-            out[k] = v.to(device)
+            out[k] = one(k, v)
         if s is not None:
             s.attrs["bytes"] = v.nbytes
     return out
 
 
+def windows_enabled(cfg, device: torch.device, mesh=None) -> bool:
+    """Resolve ``train.fused_window``, which turns the step graphs on: None
+    is on for a CUDA device and off for the CPU, as JAX's auto is for
+    accelerators and CPU backends; on a mesh whose collectives pass through
+    the host (gloo: CPU ranks, or ranks sharing one card), which no graph
+    can hold, it is off and ``True`` raises. Over NCCL a graph holds the
+    collectives too."""
+    fw = cfg.fused_window
+    if mesh is not None and not mesh.native:
+        if fw:
+            raise ValueError("train.fused_window needs the mesh's collectives on the device "
+                             "(NCCL): over gloo they pass through the host, which a CUDA graph "
+                             "cannot hold")
+        return False
+    if fw is None:
+        return device.type == "cuda"
+    return bool(fw)
+
+
+def microbatch_signature(batch: PackedBatch, max_frames: int, applied: bool) -> tuple:
+    """A microbatch's key for a CUDA graph of ``microbatch_body``: its staged
+    packed rows' shape and dtype, its targets' shape, its frame bucket and
+    whether it applies AdamW; every other value the body reads is a device
+    tensor."""
+    return (tuple(batch.packed_raw.shape), str(batch.packed_raw.dtype),
+            tuple(batch.targets.shape), max_frames, applied)
+
+
+@dataclass
+class CapturedStep:
+    """One signature's graph (None: the CPU's stand-in, which runs the body
+    on the held buffers), its input buffers (the staged device tensors and
+    host facts), its scheduled-sampling probability, its outputs (the loss
+    metrics) and its runs: the capture's own replay and every later one."""
+
+    graph: Optional["torch.cuda.CUDAGraph"]
+    key: tuple
+    tensors: Dict[str, torch.Tensor]
+    host: Dict[str, object]
+    ss_prob: Optional[torch.Tensor]
+    outputs: Dict[str, torch.Tensor] = field(default_factory=dict)
+    replays: int = 0
+
+
+class StepGraphs:
+    """A train state's step graphs, one a microbatch signature (see the
+    module's docstring). ``captures``, ``replays`` (of graphs captured at an
+    earlier microbatch) and ``warmups`` (eager runs before a capture) say
+    what it did; ``generator`` is the one every graph draws from."""
+
+    def __init__(self, cfg, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.graphed = self.device.type == "cuda"
+        self.generator = torch.Generator(device=self.device)
+        self.graphs: Dict[tuple, CapturedStep] = {}
+        self.captures = 0
+        self.replays = 0
+        self.warmups = 0
+        self._pool = None  # every graph's temporaries: they replay one at a time
+
+    def step(self, state: TrainState, batch: PackedBatch, max_frames: int, plan: "Schedule",
+             seed: int):
+        """The microbatch's staging and body, its draws from ``seed``:
+        (its loss metrics, the batch's host facts). A held signature's batch
+        is copied into its graph's buffers and replayed. A new one is
+        captured before the batch's copies, so the card runs the last
+        microbatch while the host captures, then replayed; where a warm-up
+        is due (and on the CPU) it is copied first and run eagerly."""
+        key = microbatch_signature(batch, max_frames, plan.applied)
+        held = self.graphs.get(key)
+        mesh = state.model.mesh
+        if held is not None:
+            with span("step.stage"):
+                staged, host = stage_batch(batch, mesh)
+                copy_to_device(staged, self.device, held.tensors)
+            count("step_graphs.replay")
+            self.replays += 1
+            return self._replay(state, held, plan, seed), host
+        # a state's first microbatch and its first apply (AdamW makes its
+        # moments) run eagerly on the capture stream before their capture
+        warm = (not self.graphed or not self.captures
+                or (plan.applied and not state.optimizer.state))
+        with span("step.stage"):
+            staged, host = stage_batch(batch, mesh)
+            tensors = copy_to_device(staged, self.device) if warm else None
+        if warm:
+            return self._capture(state, key, tensors, host, plan, seed, warm=True), host
+        held = self._capture(state, key, {k: torch.empty_like(v, device=self.device)
+                                          for k, v in staged.items()}, host, plan, seed,
+                             warm=False)
+        with span("step.stage"):
+            copy_to_device(staged, self.device, held.tensors)
+        return self._replay(state, held, plan, seed), host
+
+    def _body(self, state, held: CapturedStep) -> Dict[str, torch.Tensor]:
+        _, _, _, max_frames, applied = held.key
+        return microbatch_body(state, self.cfg, held.tensors, held.host, max_frames,
+                               self.generator, held.ss_prob, applied)
+
+    def _replay(self, state, held: CapturedStep, plan: "Schedule", seed: int):
+        self.generator.manual_seed(seed)
+        if held.ss_prob is not None:
+            held.ss_prob.fill_(plan.ss_prob)
+        held.replays += 1
+        if held.graph is None:
+            return self._body(state, held)
+        with span("step.replay"):
+            held.graph.replay()
+        return {k: v.clone() for k, v in held.outputs.items()}
+
+    def _capture(self, state, key, tensors, host, plan, seed, warm: bool):
+        """Hold signature ``key``'s graph over the device ``tensors``. With
+        ``warm`` the body first runs on them eagerly and its metrics are
+        returned (on the CPU that run is all); else the held graph."""
+        held = self.graphs[key] = CapturedStep(None, key, tensors, host,
+                                               ss_prob_tensor(self.cfg, plan.ss_prob,
+                                                              self.device))
+        count("step_graphs.capture")
+        self.captures += 1
+        if not self.graphed:
+            self.generator.manual_seed(seed)
+            return self._body(state, held)
+        grads = [p.grad.data_ptr() for p in state.model.parameters()]
+        current = torch.cuda.current_stream(self.device)
+        side = capture_stream(self.device.index)
+        side.wait_stream(current)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        metrics = None
+        with torch.cuda.stream(side):
+            if warm:
+                self.generator.manual_seed(seed)
+                metrics = self._body(state, held)
+                self.warmups += 1
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            graph.capture_begin(pool=self._pool)
+            try:
+                held.outputs = self._body(state, held)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        if [p.grad.data_ptr() for p in state.model.parameters()] != grads:
+            raise RuntimeError("a step graph's capture replaced a gradient buffer: a replay "
+                               "would accumulate into the old one")
+        held.graph = graph
+        return metrics if warm else held
+
+
 def make_train_step(cfg):
     """The microbatch step: train(state, batch, max_frames, generator) ->
-    metrics. It reseeds the generator for the microbatch, copies the batch
-    to the device and runs ``microbatch_body``: forward and backward in
-    train mode, the gradients added into the accumulated sums, and AdamW at
-    the microbatch's warmup LR when the summed example count reaches
-    batch_size_grad. The step is a ``step`` span of its microbatch (with
-    its examples, real frames, frame bucket and whether it applied), the
-    staging and copies a ``step.stage`` span inside it."""
+    metrics. It copies the batch to the device and runs ``microbatch_body``:
+    forward and backward in train mode, the gradients added into the
+    accumulated sums, and AdamW at the microbatch's warmup LR when the
+    summed example count reaches batch_size_grad; its draws come from a
+    generator reseeded for the microbatch (``generator``, or the step
+    graphs' own). Where ``train.fused_window`` resolves on for the state's
+    device and mesh, the body runs through the state's ``StepGraphs``
+    (``state.step_graphs``, made at its first graphed step). The step is a
+    ``step`` span of its microbatch (with its examples, real frames, frame
+    bucket and whether it applied), the staging and copies a
+    ``step.stage`` span inside it."""
 
     def train_step(state: TrainState, batch: PackedBatch, max_frames: int,
                    generator: torch.Generator) -> dict:
         model = state.model
+        graphs = None
+        if windows_enabled(cfg, model.device, model.mesh):
+            if state.step_graphs is None or state.step_graphs.cfg is not cfg:
+                state.step_graphs = StepGraphs(cfg, model.device)
+            graphs = state.step_graphs
         with span("step", microbatch=state.microbatches) as s:
-            generator.manual_seed(step_seed(state.cfg.seed, state.microbatches))
-            with span("step.stage"):
-                tensors, host = stage_batch(batch, model.mesh)
-                tensors = copy_to_device(tensors, model.device)
-            plan = schedule(state, cfg, host["n_examples"])
+            plan = schedule(state, cfg, int(batch.n_examples))
+            seed = step_seed(state.cfg.seed, state.microbatches)
             if plan.applied:
                 set_lr(state.optimizer, plan.lr)
-            metrics = microbatch_body(state, cfg, tensors, host, max_frames, generator,
-                                      ss_prob_tensor(cfg, plan.ss_prob, model.device),
-                                      plan.applied)
+            if graphs is None:
+                with span("step.stage"):
+                    tensors, host = stage_batch(batch, model.mesh)
+                    tensors = copy_to_device(tensors, model.device)
+                generator.manual_seed(seed)
+                metrics = microbatch_body(state, cfg, tensors, host, max_frames, generator,
+                                          ss_prob_tensor(cfg, plan.ss_prob, model.device),
+                                          plan.applied)
+            else:
+                metrics, host = graphs.step(state, batch, max_frames, plan, seed)
             advance(state, host["n_examples"], plan.applied)
         if s is not None:
             s.attrs.update(examples=host["n_examples"], frames=int(np.sum(batch.lengths)),

@@ -24,6 +24,7 @@ host knows each batch's example count, so the apply decision needs no sync.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,6 +68,9 @@ class TrainState:
     accum_examples: int = 0  # examples since the last apply
     microbatches: int = 0  # lifetime microbatch counter
     updates: int = 0  # optimizer apply count
+    # the state's step graphs (``parallel/train_step.py::StepGraphs``), made
+    # at its first microbatch where the step captures; None elsewhere
+    step_graphs: Optional[object] = None
 
     def accum_grads(self):
         """The summed gradients since the last apply, by parameter name."""

@@ -12,12 +12,12 @@ zero.
 
 Training batches are staged as int16 raw rows (``train.stage_int16``, the
 JAX trainer's default), which the step dequantizes on the device; eval and
-PER batches stay float32, as in the JAX package. The epoch's microbatches
-run in the fused accumulation windows of ``train/window.py`` where
-``train.fused_window`` resolves on (auto: on a CUDA device): planned ahead
-as JAX's are, each window longer than one microbatch replayed as one CUDA
-graph (eagerly on the CPU), every other microbatch its own step; the
-numbers are the per-microbatch steps'. While a torch profiler runs (or
+PER batches stay float32, as in the JAX package. Each microbatch is its
+own step; where ``train.fused_window`` resolves on (auto: on a CUDA
+device) the step replays one CUDA graph per microbatch signature
+(``parallel/train_step.py::StepGraphs``), as the JAX trainer's fused
+windows run a step jitted once per shape; the numbers are the eager
+step's. While a torch profiler runs (or
 inside ``utils.profiling.recording()``) the batch assembly and each
 per-microbatch step record spans (``utils/profiling.py``), which
 synchronize nothing. The JAX trainer's prefetch threads are an XLA
@@ -64,13 +64,12 @@ from emg_tpu_torch.decode.greedy import run_greedy
 from emg_tpu_torch.models.model import EMGModel
 from emg_tpu_torch.parallel import distributed
 from emg_tpu_torch.parallel.mesh import Mesh, full_state_dict, mesh_from_config, shard_params
-from emg_tpu_torch.parallel.train_step import make_eval_step, make_train_step
+from emg_tpu_torch.parallel.train_step import make_eval_step, make_train_step, windows_enabled
 from emg_tpu_torch.runtime import resolve_device
 from emg_tpu_torch.text.metrics import wer
 from emg_tpu_torch.train.checkpoint import CheckpointManager, load_weights, merge_params
 from emg_tpu_torch.train.metrics_writer import MetricsWriter, NullMetricsWriter
 from emg_tpu_torch.train.state import TrainState, create_train_state
-from emg_tpu_torch.train.window import WindowRunner, plan_windows, windows_enabled
 
 log = logging.getLogger(__name__)
 
@@ -84,9 +83,8 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         self.mesh = self._build_mesh()
-        # fused accumulation windows (train/window.py)
-        self.windows = (WindowRunner(config.train, self.device)
-                        if windows_enabled(config.train, self.device, self.mesh) else None)
+        # the step graphs (parallel/train_step.py); over gloo ``True`` raises here
+        self.graphed = windows_enabled(config.train, self.device, self.mesh)
         self.trainset = trainset
         self.devset = devset
         # only rank 0 writes metrics (the reported losses are global sums,
@@ -264,23 +262,12 @@ class Trainer:
             losses: List[float] = []
             epoch_start = time.perf_counter()
             epoch_batches = list(train_sampler)
-            windows = (plan_windows(epoch_batches, state.accum_examples, cfg)
-                       if self.windows is not None else [1] * len(epoch_batches))
-            step = 0
-            for wlen in windows:
-                group = []
-                for idxs in epoch_batches[step: step + wlen]:
-                    pb, max_frames, _ = self._prepare(self.trainset, idxs)
-                    if cfg.stage_int16:
-                        pb = quantize_packed_raw(pb)
-                    group.append((pb, max_frames))
-                metrics = self.windows.run(state, group) if wlen > 1 else None
-                if metrics is None:  # a window of one, or past the signature cap
-                    metrics = [self.train_step(state, pb, max_frames, self.generator)
-                               for pb, max_frames in group]
-                pending.extend(metrics)
-                batch_idx += wlen
-                step += wlen
+            for step, idxs in enumerate(epoch_batches, 1):
+                pb, max_frames, _ = self._prepare(self.trainset, idxs)
+                if cfg.stage_int16:
+                    pb = quantize_packed_raw(pb)
+                pending.append(self.train_step(state, pb, max_frames, self.generator))
+                batch_idx += 1
                 if step % cfg.report_loss == 0:
                     drain_pending()
                     ev = self.evaluation_loop(state, dev_sampler)

@@ -43,8 +43,9 @@ losses take float32 logits; the gradient sums and AdamW stay float32.
 - ``model.remat`` at bfloat16 is bitwise the step without it, at dropout 0
   and 0.2, with the training attention run twice a layer (the recompute's
   draws read back).
-- ``train.fused_window`` at bfloat16 (the CLI, windows run eagerly on the
-  CPU) ends two epochs bitwise where the per-microbatch steps end.
+- ``train.fused_window`` at bfloat16 (the CLI, the step graphs'
+  bookkeeping run eagerly on the CPU) ends two epochs bitwise where the
+  eager per-microbatch steps end.
 - A 2x1 gloo mesh step at bfloat16 (dropout 0.2) against the single-rank
   bfloat16 step: the loss to 1e-5 and the gradients to MESH_GRAD_TOL
   (1e-2) of their whole norm (1.4e-3 seen). The ranks' BatchNorm sums meet
@@ -75,6 +76,7 @@ import emg_tpu_torch.models.model as port_model_module
 from tests.test_torch_fused_window import TRAIN as WINDOW_TRAIN
 from tests.test_torch_fused_window import _state as window_state
 from tests.test_torch_fused_window import corpus  # noqa: F401
+from tests.test_torch_fused_window import graph_counts
 from tests.test_torch_model import one_torch_thread  # noqa: F401
 from tests.test_torch_remat import port_step
 from tests.test_torch_sharded_step import MAX_FRAMES as MESH_FRAMES
@@ -222,22 +224,24 @@ def test_bf16_remat_is_bitwise_the_plain_step(dropout):
 @pytest.fixture(scope="module")
 def bf16_runs(corpus):
     """Two epochs of the CLI's train mode at bfloat16 on the fused-window
-    test's corpus, with ``--train.fused_window`` true (eager windows on the
-    CPU) and false."""
+    test's corpus, with ``--train.fused_window`` true (the step graphs'
+    bookkeeping, eagerly on the CPU) and false, and each run's step graph
+    captures and replays."""
     root, argv = corpus
-    runs = {}
+    runs, counts = {}, {}
     for fused in ("true", "false"):
-        runs[fused] = cli.main(argv + WINDOW_TRAIN + [
+        runs[fused], counts[fused] = graph_counts(lambda: cli.main(argv + WINDOW_TRAIN + [
             "--model.compute_dtype", "bfloat16", "--n_epochs", "2", "--device", "cpu",
-            "--train.fused_window", fused, "--output_directory", str(root / f"bf16_{fused}")])
-    return root, argv, runs
+            "--train.fused_window", fused, "--output_directory", str(root / f"bf16_{fused}")]))
+    return root, argv, runs, counts
 
 
 def test_bf16_windows_equal_per_microbatch_steps(bf16_runs):
-    _, _, runs = bf16_runs
-    windows = runs["true"].windows
-    assert runs["false"].windows is None
-    assert windows is not None and not windows.graphed and windows.eager_windows >= 3
+    _, _, runs, counts = bf16_runs
+    assert runs["true"].graphed and not runs["false"].graphed
+    assert counts["false"] == (0, 0)
+    captures, replays = counts["true"]
+    assert captures >= 2 and replays >= 3 and captures + replays == 12
     (la, a), (lb, b) = window_state(runs["true"]), window_state(runs["false"])
     assert la == lb and len(la) == 12 and all(np.isfinite(la))
     for key in ("microbatches", "updates", "accum_examples"):
@@ -253,7 +257,7 @@ def test_bf16_windows_equal_per_microbatch_steps(bf16_runs):
 
 
 def test_bf16_cli_trains_and_the_greedy_cli_serves_it(bf16_runs):
-    root, argv, runs = bf16_runs
+    root, argv, runs, _ = bf16_runs
     trainer = runs["false"]
     assert trainer.config.model.compute_dtype == "bfloat16"
     out = root / "bf16_false"

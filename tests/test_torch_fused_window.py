@@ -1,18 +1,20 @@
-"""Fused accumulation windows (``emg_tpu_torch/train/window.py``) on the
-CPU, against the per-microbatch path and the JAX package's windows.
+"""``train.fused_window`` (the step graphs of ``parallel/train_step.py``, one
+a microbatch signature) on the CPU, against the per-microbatch eager path
+and the JAX package's fused windows, and the window plan.
 
 - ``plan_windows`` equals the JAX trainer's ``_plan_windows`` on seeded
   random batch lists, start counts and ``report_loss`` /
   ``batch_size_grad`` values.
-- A trainer with ``--train.fused_window true`` on the CPU runs its windows
-  eagerly (``WindowRunner``: one generator a window position, the same
-  staging and body as a graph replays) and ends two epochs bitwise where
+- A trainer with ``--train.fused_window true`` on the CPU runs its
+  microbatches through the step graphs' bookkeeping eagerly (the graphs'
+  own generator, the same staging and body as a graph replays; every
+  microbatch a capture or a replay) and ends two epochs bitwise where
   the per-microbatch path ends: every microbatch's losses, the parameters,
   the BatchNorm statistics, AdamW's moments and step counts, the pending
   gradient sums and the counters. The corpus (4 sentences, 6 training
   utterances of one microbatch each at max_batch_length 3000;
-  batch_size_grad 4, report_loss 3) plans windows of 1, 2 and 3
-  microbatches, with and without an apply.
+  batch_size_grad 4, report_loss 3) runs microbatches with and without an
+  apply.
 - One epoch against the JAX trainer with ``fused_window=True`` from
   the same weights (JAX's initial weights carried across through a
   model.pt), on the port's dataset, at dropout 0 with the time shift held
@@ -25,7 +27,8 @@ CPU, against the per-microbatch path and the JAX package's windows.
   moment, the summed gradients, to MOMENT_TOL (see there).
   The epoch is planned as a window of 4 microbatches and one of 2 that
   applies (batch_size_grad 6, report_loss 4), so every gradient is taken at
-  the initial weights. JAX ran at least one window program.
+  the initial weights. JAX ran at least one window program; the port
+  replayed at least one step graph.
 - ``train.fused_window`` None resolves off on the CPU, on for a CUDA
   device; on a mesh over gloo (two CPU ranks) None resolves off and
   ``True`` raises.
@@ -47,6 +50,7 @@ from emg_tpu_torch.data.fixtures import make_synthetic_corpus
 from emg_tpu_torch.parallel.distributed import launch
 from emg_tpu_torch.train.trainer import Trainer
 from emg_tpu_torch.train.window import plan_windows, windows_enabled
+from emg_tpu_torch.utils import profiling
 
 TINY = ["--model.model_size", "16", "--feed_forward_layer_size", "32",
         "--num_layers_encoder", "1", "--num_layers_decoder", "1",
@@ -101,16 +105,27 @@ def _state(trainer):
     return trainer.train_losses, latest
 
 
+def graph_counts(run):
+    """``run()`` inside ``profiling.recording()``: (its result, the step
+    graphs' capture and replay counts)."""
+    with profiling.recording():
+        out = run()
+    counts = profiling.recorded().counts
+    profiling.clear()
+    return out, (counts.get("step_graphs.capture", 0), counts.get("step_graphs.replay", 0))
+
+
 def test_cpu_windows_equal_per_microbatch_steps(corpus):
     root, argv = corpus
-    runs = {}
+    runs, counts = {}, {}
     for fused in ("true", "false"):
-        runs[fused] = cli.main(argv + TRAIN + [
+        runs[fused], counts[fused] = graph_counts(lambda: cli.main(argv + TRAIN + [
             "--n_epochs", "2", "--device", "cpu", "--train.fused_window", fused,
-            "--output_directory", str(root / f"fused_{fused}")])
-    windows = runs["true"].windows
-    assert runs["false"].windows is None
-    assert windows is not None and not windows.graphed and windows.eager_windows >= 3
+            "--output_directory", str(root / f"fused_{fused}")]))
+    assert runs["true"].graphed and not runs["false"].graphed
+    assert counts["false"] == (0, 0)
+    captures, replays = counts["true"]
+    assert captures >= 2 and replays >= 3 and captures + replays == 12
     (la, a), (lb, b) = _state(runs["true"]), _state(runs["false"])
     assert la == lb and len(la) == 12
     for key in ("microbatches", "updates", "accum_examples"):
@@ -195,10 +210,11 @@ def test_cpu_windows_match_jax_windows(corpus, monkeypatch):
     jstate = jtrainer.train(jstate)
     assert programs and max(programs) > 1
 
-    port = cli.main(args + ["--device", "cpu", "--train.fused_window", "true",
-                            "--start_training_from", str(root / "jax_init.pt"),
-                            "--output_directory", str(root / "port_run")])
-    assert port.windows.eager_windows >= 1
+    port, (_, replays) = graph_counts(lambda: cli.main(args + [
+        "--device", "cpu", "--train.fused_window", "true",
+        "--start_training_from", str(root / "jax_init.pt"),
+        "--output_directory", str(root / "port_run")]))
+    assert replays >= 1
     np.testing.assert_allclose(port.train_losses, jax_losses, rtol=1e-5)
     _, latest = _state(port)
     assert latest["microbatches"] == int(jstate.microbatches)
@@ -252,7 +268,7 @@ def _gloo_rank(argv, out_dir):
         cfg = Config.from_args(argv + TRAIN + flags + ["--parallel.data_axis", "2",
                                                        "--output_directory", out_dir])
         try:
-            results[str(fused)] = Trainer(cfg, None, None, None, device="cpu").windows is None
+            results[str(fused)] = not Trainer(cfg, None, None, None, device="cpu").graphed
         except ValueError as e:
             results[str(fused)] = str(e)
     torch.save(results, os.path.join(out_dir, f"gloo.{rank}.pt"))
